@@ -1,0 +1,338 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port (zkstream_tpu_torch) on one CUDA card.
+
+Run from the repository root on a machine with an H100:
+
+    python3 chip_smoke.py
+
+Phases (any failure exits non-zero; nothing is caught):
+
+1. Build kernel K1 (``zkstream_tpu_torch/csrc/wire_scan.cu``) with
+   nvcc for sm_90a into ``build/`` and print ptxas's register/spill
+   report.
+2. Hold K1 against its plain torch version on the card, exactly
+   (integer planes, tolerance 0): the deployed-shaped corpus (16384
+   streams x 64 mixed-opcode frames, ~247 MiB, seed 42) and an
+   adversarial batch (bad prefixes, short frames, truncated tails,
+   empty and full rows, odd B, lens > L, lens < 0).
+3. The tick decode ``wire_pipeline_step_auto`` on the corpus (it must
+   launch K1 and equal the plain step), ``entry()``, and the timings:
+   K1 and the plain version by CUDA events in turns (plain, kernel,
+   kernel, plain), the host->device copy of the tick batch, and K1's
+   bound from the bytes it must move at 3.35 TB/s.
+4. The main path: ``FleetIngest(device='cuda', body_mode='host',
+   bypass_bytes=0, warm='block', max_frames=64)`` serves 1,024
+   stand-in connections fed their corpus streams in three chunks cut
+   at seeded offsets, plus one connection carrying a bad length
+   prefix.  Every delivery must equal the scalar codec's, and K1's
+   launches (counted from 0 just before this phase) must equal the
+   ingest's device ticks.
+
+The last lines are the card's name and power limit, one JSON object of
+kernels, and ``{"ok": true, "device": {...}}``.  Without a CUDA device
+(or without the rest of the repository beside it) the script exits
+non-zero and prints no result.
+"""
+
+from __future__ import annotations
+
+import asyncio
+import json
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+HBM_BYTES_PER_S = 3.35e12      # H100 SXM published memory rate
+B_CORPUS = 16384               # streams per tick, as bench.py's corpus
+FRAMES = 64
+FLEET = 1024                   # live connections in the ingest phase
+SEED = 42
+
+
+def _log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def _time_ms(torch, fn, n: int) -> float:
+    """Mean device time of ``fn`` over ``n`` back-to-back calls."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(n):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / n
+
+
+def _equal_dicts(torch, want: dict, got: dict, what: str) -> int:
+    """Assert every plane equal; return the max absolute difference."""
+    err = 0
+    for k in want:
+        a, b = want[k], got[k]
+        if a.shape != b.shape or a.dtype != b.dtype:
+            raise AssertionError('%s: %s shape/dtype %s %s vs %s %s' % (
+                what, k, tuple(a.shape), a.dtype, tuple(b.shape), b.dtype))
+        d = (a.to(torch.int64) - b.to(torch.int64)).abs()
+        e = int(d.max()) if d.numel() else 0
+        if e:
+            raise AssertionError('%s: plane %s differs (max |d| %d)'
+                                 % (what, k, e))
+        err = max(err, e)
+    return err
+
+
+class StandIn:
+    """A connection as the fleet ingest sees it: a codec, a state and
+    the ``ingestDeliver`` event."""
+
+    def __init__(self, codec):
+        self.codec = codec
+        self.got: list = []
+        self.err = None
+
+    def is_in_state(self, state: str) -> bool:
+        return state == 'connected' and self.err is None
+
+    def emit(self, event: str, pkts, err) -> None:
+        if event != 'ingestDeliver':
+            raise AssertionError('unexpected event %r' % (event,))
+        self.got.extend(pkts)
+        if err is not None:
+            self.err = err
+
+
+def _scalar_drain(PacketCodec, chunks, xid_map):
+    """The per-socket scalar drain of one connection's chunks."""
+    codec = _codec(PacketCodec, xid_map)
+    pkts, code = [], None
+    for piece in chunks:
+        try:
+            pkts += codec.decode(piece)
+        except Exception as e:      # the codec's protocol error
+            pkts += getattr(e, 'packets', [])
+            code = e.code
+            break
+    return pkts, code
+
+
+def _codec(PacketCodec, xid_map):
+    c = PacketCodec()
+    c.handshaking = False
+    c.xid_map.update(xid_map)
+    return c
+
+
+async def _serve(ing, conns, chunks):
+    """Register ``conns`` with the ingest, feed each its chunks one
+    round per loop cycle, and run the loop until every slot drains."""
+    for c in conns:
+        ing.register(c)
+    for k in range(3):
+        for conn, ch in zip(conns, chunks):
+            if ch[k]:
+                ing.feed(conn, ch[k])
+        await asyncio.sleep(0)
+    loop = asyncio.get_running_loop()
+    deadline = loop.time() + 300.0
+    while ing._scheduled or any(buf for _c, buf in ing._slots.values()):
+        if loop.time() > deadline:
+            raise AssertionError('ingest did not drain in 300 s')
+        await asyncio.sleep(0.001)
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print('chip_smoke: no CUDA device; nothing run', file=sys.stderr)
+        return 2
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from zkstream_tpu_torch import corpus
+    from zkstream_tpu_torch.entry import entry
+    from zkstream_tpu_torch.io.ingest import FleetIngest
+    from zkstream_tpu_torch.ops import pipeline as P
+    from zkstream_tpu_torch.ops import wire_scan as W
+    from zkstream_tpu_torch.protocol.framing import PacketCodec
+
+    t_start = time.perf_counter()
+    dev = torch.device('cuda')
+    smi = subprocess.run(
+        ['nvidia-smi', '--query-gpu=name,power.limit',
+         '--format=csv,noheader'], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    _log('# card: %s (torch %s, CUDA %s)' % (smi, torch.__version__,
+                                              torch.version.cuda))
+
+    # -- 1. build --
+    t0 = time.perf_counter()
+    W.load()
+    _log('# phase 1 build: %.2f s' % (time.perf_counter() - t0))
+    for line in W.build_report().splitlines():
+        if 'registers' in line or 'spill' in line:
+            _log('# ptxas: ' + line.strip())
+
+    # -- 2. K1 against its plain version --
+    t0 = time.perf_counter()
+    buf_np, lens_np, slots, maps = corpus.fleet(B_CORPUS, SEED, FRAMES)
+    _log('# corpus: B=%d L=%d (%.1f MiB) built in %.2f s' % (
+        buf_np.shape[0], buf_np.shape[1], buf_np.nbytes / 2**20,
+        time.perf_counter() - t0))
+    db, dl = P.batch_to_device(buf_np, lens_np, dev)
+    got = W.wire_scan(db, dl, FRAMES)
+    want = W.wire_scan_plain(db, dl, FRAMES)
+    torch.cuda.synchronize()
+    err = _equal_dicts(torch, want, got, 'corpus')
+    frames_found = int(got['counts'].sum())
+    if frames_found != B_CORPUS * FRAMES or bool(got['bad'].any()):
+        raise AssertionError('corpus decode: %d frames, bad=%s'
+                             % (frames_found, bool(got['bad'].any())))
+    abuf, alens = corpus.adversarial(seed=1, B=1001, L=512)
+    da, dal = P.batch_to_device(abuf, alens, dev)
+    err = max(err, _equal_dicts(torch, W.wire_scan_plain(da, dal, FRAMES),
+                                W.wire_scan(da, dal, FRAMES),
+                                'adversarial'))
+    n_bad = int(W.wire_scan(da, dal, FRAMES)['bad'].sum())
+    _log('# phase 2 K1 == plain: corpus %d frames, adversarial B=%d '
+         '(%d bad rows), max |d| %d' % (frames_found, abuf.shape[0],
+                                        n_bad, err))
+
+    # -- 3. tick decode, entry and timings --
+    before = W.launches
+    st = P.wire_pipeline_step_auto(db, dl, max_frames=FRAMES)
+    if W.launches != before + 1:
+        raise AssertionError('wire_pipeline_step_auto did not launch K1')
+    want_st = P.wirestats_to_numpy(P.wire_pipeline_step(db, dl, FRAMES))
+    got_st = P.wirestats_to_numpy(st)
+    for f in want_st:
+        np.testing.assert_array_equal(want_st[f], got_st[f], err_msg=f)
+    fn, args = entry(device='cuda')
+    est = P.wirestats_to_numpy(fn(*args))
+    if not ((est['n_frames'] > 0).all() and not est['bad'].any()
+            and est['starts'].shape == (args[0].shape[0], 64)):
+        raise AssertionError('entry() step gave unexpected stats')
+
+    def k1():
+        W.wire_scan(db, dl, FRAMES)
+
+    def plain():
+        W.wire_scan_plain(db, dl, FRAMES)
+
+    def step():
+        P.wire_pipeline_step_auto(db, dl, max_frames=FRAMES)
+
+    k1()
+    plain()
+    step()
+    p1 = _time_ms(torch, plain, 3)
+    k_a = _time_ms(torch, k1, 50)
+    k_b = _time_ms(torch, k1, 50)
+    p2 = _time_ms(torch, plain, 3)
+    k_ms, plain_ms = (k_a + k_b) / 2, (p1 + p2) / 2
+    step_ms = _time_ms(torch, step, 20)
+    stage = torch.from_numpy(buf_np).pin_memory()
+    dst = torch.empty_like(db)
+    dst.copy_(stage, non_blocking=True)
+    h2d_ms = _time_ms(torch, lambda: dst.copy_(stage, non_blocking=True),
+                      10)
+    del stage, dst
+    bound_b = W.bound_bytes(B_CORPUS, FRAMES, frames_found)
+    bound_ms = bound_b / HBM_BYTES_PER_S * 1e3
+    _log('# phase 3 on %s: K1 %.4f ms (turns %.4f %.4f), plain %.4f ms '
+         '(turns %.4f %.4f), auto step %.4f ms, H2D copy of the %.1f MiB '
+         'batch %.4f ms (%.1f GB/s), K1 bound %.4f ms (%d bytes at 3.35 '
+         'TB/s)' % (smi, k_ms, k_a, k_b, plain_ms, p1, p2, step_ms,
+                    buf_np.nbytes / 2**20, h2d_ms,
+                    buf_np.nbytes / h2d_ms / 1e6, bound_ms, bound_b))
+
+    # -- 4. the main path: live fleet ingest --
+    rng = np.random.RandomState(SEED + 1)
+    streams = [buf_np[i].tobytes() for i in range(FLEET)]
+    xmaps = maps[:FLEET]
+    # one more connection: two good frames, then a bad length prefix
+    streams.append(streams[0][:slots[2]['off']] + b'\xff\xff\xff\xf9xx')
+    xmaps.append(dict(maps[0]))
+    chunks = []
+    for s in streams:
+        a, b = sorted(rng.randint(0, len(s) + 1, 2).tolist())
+        chunks.append([s[:a], s[a:b], s[b:]])
+    conns = [StandIn(_codec(PacketCodec, m)) for m in xmaps]
+    del db, dl, da, dal, got, want, st
+    torch.cuda.synchronize()
+    ing = FleetIngest(device='cuda', body_mode='host', bypass_bytes=0,
+                      warm='block', max_frames=FRAMES)
+    # the device half of each tick (staging fill, H2D copy, K1, pack,
+    # readback), timed on the host clock around its synchronize
+    step_s: list = []
+    run_step = ing._run_step
+
+    def timed_step(bk, active):
+        t = time.perf_counter()
+        out = run_step(bk, active)
+        step_s.append(time.perf_counter() - t)
+        return out
+
+    ing._run_step = timed_step
+    W.launches = 0
+    t0 = time.perf_counter()
+    asyncio.run(_serve(ing, conns, chunks))
+    wall = time.perf_counter() - t0
+    launches = W.launches
+    if not (ing.ticks > 0 and launches == ing.ticks
+            and ing.ticks_scalar == 0 and ing.ticks_warming == 0):
+        raise AssertionError('ingest ticks %d (scalar %d, warming %d) vs '
+                             'K1 launches %d' % (ing.ticks, ing.ticks_scalar,
+                                                 ing.ticks_warming,
+                                                 launches))
+    n_pkts = 0
+    for i, (conn, ch) in enumerate(zip(conns, chunks)):
+        want_pkts, want_code = _scalar_drain(PacketCodec, ch, xmaps[i])
+        code = getattr(conn.err, 'code', None)
+        if conn.got != want_pkts or code != want_code:
+            raise AssertionError('connection %d: %d packets (err %s) vs '
+                                 'scalar %d (err %s)' % (
+                                     i, len(conn.got), code,
+                                     len(want_pkts), want_code))
+        n_pkts += len(conn.got)
+    code = getattr(conns[-1].err, 'code', None)
+    if code != 'BAD_LENGTH':
+        raise AssertionError('bad-prefix connection raised %r' % (code,))
+    tick_ms = ing.tick_hist.sum() / max(ing.tick_hist.count(), 1)
+    _log('# phase 4 on %s: %d connections, %d packets equal to the scalar '
+         'codec, bad prefix -> %s; %d device ticks = %d K1 launches; '
+         'mean tick %.3f ms, of which the device half (stage, copy, K1, '
+         'pack, readback) %.3f ms per tick: %s; phase wall %.2f s'
+         % (smi, len(conns), n_pkts, code, ing.ticks, launches, tick_ms,
+            sum(step_s) * 1e3 / len(step_s),
+            ' '.join('%.3f' % (x * 1e3) for x in step_s), wall))
+
+    # -- report --
+    kernels = [{
+        'name': 'K1 wire_scan (frame scan + reply-header parse)',
+        'route': 'cuda',
+        'source': 'zkstream_tpu_torch/csrc/wire_scan.cu',
+        'replaces': W.REPLACES,
+        'launches': launches,
+        'max_abs_err': err,
+        'equal': err == 0,
+        'ms': k_ms,
+        'plain_ms': plain_ms,
+        'bound_ms': bound_ms,
+        'bound_by': 'bytes',
+        'library_ms': None,
+    }]
+    _log('# total %.1f s' % (time.perf_counter() - t_start))
+    print(smi)
+    print(json.dumps({'kernels': kernels}))
+    print(json.dumps({'ok': True, 'device': {
+        'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
+        'count': torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == '__main__':
+    sys.exit(main())

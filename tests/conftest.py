@@ -86,6 +86,8 @@ def pytest_configure(config):
         'markers', 'slow: excluded from the tier-1 fast suite '
         "(run with -m 'not slow'); the chaos campaign and every "
         'default test stay tier-1 compatible')
+    config.addinivalue_line(
+        'markers', 'cuda: needs a CUDA card; skips without one')
 
 
 @pytest.hookimpl(tryfirst=True)

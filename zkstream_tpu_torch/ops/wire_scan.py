@@ -1,0 +1,180 @@
+"""Kernel K1: fused frame scan + reply-header parse, one CUDA launch.
+
+Replaces the TPU kernel ``zkstream_tpu/ops/pallas_scan.py::_kernel``
+(launched by ``pallas_wire_scan``).  The CUDA C++ source is
+``zkstream_tpu_torch/csrc/wire_scan.cu``: one thread per stream row
+walks up to ``max_frames`` frames with byte loads from device memory
+and writes ``[B, F]`` planes directly (the TPU's ``[F, B]`` layout and
+its lane-roll "gathers" were Mosaic tiling artefacts).
+
+What bounds it on an H100: memory.  It reads 20 bytes per frame found
+(the 4-byte length prefix and the 16-byte reply header) and 4 bytes of
+``lens`` per row, and writes 24 bytes per frame slot (six int32 planes)
+plus 9 bytes per row (``counts``, ``resid``, ``bad``) —
+:func:`bound_bytes` counts exactly that.
+
+The library is built with ``nvcc`` for ``sm_90a`` into ``build/`` at
+the repository root on first use (:func:`load`) and bound with
+``ctypes``.  :func:`wire_scan` runs the plain torch version for a
+tensor on the CPU and the kernel for a tensor on a CUDA device; there
+is no fallback from one to the other.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+import torch
+
+from .frame_scan import frame_cursor_scan
+from .headers import parse_reply_headers
+
+#: Where the TPU kernel this module replaces lives.
+REPLACES = 'zkstream_tpu/ops/pallas_scan.py:99'
+
+_PKG = Path(__file__).resolve().parents[1]
+SOURCE = _PKG / 'csrc' / 'wire_scan.cu'
+BUILD_DIR = _PKG.parent / 'build'
+
+#: Launches of the CUDA kernel since the last reset (the plain version
+#: never counts).
+launches = 0
+
+_lib = None
+_build_log = ''
+_lock = threading.Lock()
+
+_PLANES = ('starts', 'sizes', 'xid', 'zxid_hi', 'zxid_lo', 'err')
+
+
+def _nvcc() -> str:
+    for cand in (os.environ.get('CUDA_HOME'), '/usr/local/cuda'):
+        if cand and os.path.exists(os.path.join(cand, 'bin', 'nvcc')):
+            return os.path.join(cand, 'bin', 'nvcc')
+    found = shutil.which('nvcc')
+    if found is None:
+        raise RuntimeError('nvcc not found: K1 (%s) cannot be built'
+                           % (SOURCE.name,))
+    return found
+
+
+def build() -> tuple[Path, str]:
+    """Compile ``csrc/wire_scan.cu`` for sm_90a into ``build/`` (once
+    per source content) and return ``(library path, ptxas report)``."""
+    src = SOURCE.read_bytes()
+    tag = hashlib.sha256(src).hexdigest()[:16]
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    out = BUILD_DIR / ('libwire_scan.%s.so' % tag)
+    log = BUILD_DIR / ('libwire_scan.%s.log' % tag)
+    if out.exists() and log.exists():
+        return out, log.read_text()
+    tmp = out.with_name(out.name + '.%d.tmp' % os.getpid())
+    cmd = [_nvcc(), '-gencode', 'arch=compute_90a,code=sm_90a',
+           '-std=c++17', '-O3', '-shared', '-Xcompiler', '-fPIC',
+           '-Xptxas', '-v', '-o', str(tmp), str(SOURCE)]
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    if res.returncode != 0:
+        raise RuntimeError('nvcc failed (%d):\n%s%s'
+                           % (res.returncode, res.stdout, res.stderr))
+    report = res.stdout + res.stderr
+    log.write_text(report)
+    os.replace(tmp, out)
+    return out, report
+
+
+def load():
+    """Build (if needed) and bind the K1 launcher; idempotent."""
+    global _lib, _build_log
+    with _lock:
+        if _lib is None:
+            path, _build_log = build()
+            lib = ctypes.CDLL(str(path))
+            fn = lib.wire_scan_launch
+            fn.argtypes = ([ctypes.c_void_p] * 2
+                           + [ctypes.c_int, ctypes.c_longlong, ctypes.c_int]
+                           + [ctypes.c_void_p] * 10)
+            fn.restype = ctypes.c_int
+            _lib = lib
+    return _lib
+
+
+def build_report() -> str:
+    """The ``nvcc -Xptxas -v`` output of the loaded library."""
+    return _build_log
+
+
+def wire_scan_plain(buf, lens, max_frames: int) -> dict:
+    """The plain torch version: ``frame_cursor_scan`` +
+    ``parse_reply_headers``, in K1's output layout."""
+    starts, sizes, counts, bad, resid = frame_cursor_scan(
+        buf, lens, max_frames)
+    h = parse_reply_headers(buf, starts, sizes)
+    return {'starts': starts, 'sizes': sizes, 'xid': h['xid'],
+            'zxid_hi': h['zxid_hi'], 'zxid_lo': h['zxid_lo'],
+            'err': h['err'], 'counts': counts, 'resid': resid,
+            'bad': bad}
+
+
+def _check(buf, lens, max_frames: int) -> None:
+    if buf.dtype != torch.uint8 or buf.dim() != 2:
+        raise ValueError('buf must be uint8 [B, L], got %s %s'
+                         % (buf.dtype, tuple(buf.shape)))
+    if lens.dtype != torch.int32 or lens.shape != (buf.shape[0],):
+        raise ValueError('lens must be int32 [B], got %s %s'
+                         % (lens.dtype, tuple(lens.shape)))
+    if lens.device != buf.device:
+        raise ValueError('buf and lens on different devices')
+    if buf.shape[1] < 1:
+        raise ValueError('buf needs at least one column')
+    if max_frames < 0:
+        raise ValueError('max_frames must be >= 0')
+
+
+def wire_scan(buf, lens, max_frames: int) -> dict:
+    """Frame scan + header parse of a ``uint8 [B, L]`` batch.
+
+    Returns int32 ``[B, F]`` planes ``starts``, ``sizes``, ``xid``,
+    ``zxid_hi``, ``zxid_lo``, ``err``; int32 ``[B]`` ``counts`` and
+    ``resid``; bool ``[B]`` ``bad`` — field for field what
+    :func:`wire_scan_plain` returns.  A CPU tensor runs the plain
+    version; a CUDA tensor launches K1 on the current stream.
+    """
+    global launches
+    _check(buf, lens, max_frames)
+    if buf.device.type == 'cpu':
+        return wire_scan_plain(buf, lens, max_frames)
+    if buf.device.type != 'cuda':
+        raise ValueError('K1 runs on CUDA or CPU tensors, not %s'
+                         % (buf.device,))
+    if not (buf.is_contiguous() and lens.is_contiguous()):
+        raise ValueError('K1 needs contiguous buf and lens')
+    lib = load()
+    B, L = buf.shape
+    out = {name: torch.empty((B, max_frames), dtype=torch.int32,
+                             device=buf.device) for name in _PLANES}
+    out['counts'] = torch.empty((B,), dtype=torch.int32, device=buf.device)
+    out['resid'] = torch.empty((B,), dtype=torch.int32, device=buf.device)
+    out['bad'] = torch.empty((B,), dtype=torch.bool, device=buf.device)
+    with torch.cuda.device(buf.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.wire_scan_launch(
+            buf.data_ptr(), lens.data_ptr(), B, L, max_frames,
+            *(out[name].data_ptr() for name in _PLANES),
+            out['counts'].data_ptr(), out['resid'].data_ptr(),
+            out['bad'].data_ptr(), stream)
+    if rc != 0:
+        raise RuntimeError('K1 launch failed: cudaError %d' % (rc,))
+    launches += 1
+    return out
+
+
+def bound_bytes(B: int, max_frames: int, frames_found: int) -> int:
+    """Bytes K1 must move for one call: 20 read per frame found plus 4
+    of ``lens`` per row; 24 written per frame slot plus 9 per row."""
+    return 20 * frames_found + 4 * B + 24 * B * max_frames + 9 * B

@@ -1,0 +1,415 @@
+"""Single-pass steady-state encoders — the send-side twin of the
+struct-batched decode (PROFILE.md).
+
+``records.write_request`` / ``write_response`` walk a ``JuteWriter``
+one primitive at a time: ~10-15 Python-level calls and one
+``struct.pack`` per *field* for a GET_DATA reply.  The decode profile
+condemned exactly that shape on the receive side, and the cure is the
+same here: per-opcode precompiled encoders.  Every variable length is
+known before any byte is written, so the frame's length prefix, the
+8/16-byte header and every adjacent fixed-width field go out in ONE
+``struct.pack`` (no reserve-and-backfill pass), the variable bytes are
+spliced with a single ``join``, and the 68-byte Stat is one pack — the
+exact twin of ``records.read_stat``.  An EXISTS/SET_DATA reply is one
+``struct.pack`` for the entire frame, prefix to pzxid.  (A reusable
+scratch buffer with ``pack_into`` + in-place length patching was
+measured ~2x SLOWER than pack-and-join: the final ``bytes()`` copy out
+of the scratch costs more than the join saves.)
+
+``JuteWriter`` + ``records`` remain the semantic spec and the
+fallback: every encoder here returns ``None`` for any shape, type or
+range it does not handle bit-exactly, and ``PacketCodec.encode``
+re-runs the spec encoder, which raises its own precise validation
+errors.  Byte-for-byte equivalence over the full opcode corpus is
+asserted in tests/test_fastencode.py (and against the C encoders in
+native/zkwire_ext.c when the extension is present — the three tiers
+must agree or the fast ones lose).
+
+``ZKSTREAM_NO_FASTENC=1`` disables this tier (A/B tests, the encode
+profile's per-field baseline).
+"""
+
+from __future__ import annotations
+
+import struct
+
+from . import records
+from .consts import ErrCode, KeeperState, NotificationType, OpCode
+from .jute import JuteWriter
+
+#: The Stat record's fixed 68-byte layout in one pack
+#: (field order is the records.Stat tuple order).
+_STAT = records._STAT_STRUCT
+
+_INT = struct.Struct('>i')
+#: len + xid + opnum — a header-only request (PING, CLOSE_SESSION).
+_REQ_HDR = struct.Struct('>iii')
+#: len + xid + opnum + first-string length, one pack.
+_REQ_PATH_HDR = struct.Struct('>iiii')
+#: len + xid + zxid + err — the framed 16-byte reply header.
+_RESP_HDR = struct.Struct('>iiqi')
+#: reply header + one buffer length (GET_DATA data, CREATE path).
+_RESP_BUF_HDR = struct.Struct('>iiqii')
+#: reply header + the WHOLE 68-byte Stat: an EXISTS/SET_DATA reply is
+#: one pack, start to finish.
+_RESP_STAT = struct.Struct('>iiqiqqqqiiiqiiq')
+#: reply header + notification type + state + path length.
+_NOTIF_HDR = struct.Struct('>iiqiiii')
+#: one jute MultiHeader: int type | bool done | int err.
+_MULTI_HDR = struct.Struct('>ibi')
+_MULTI_END = _MULTI_HDR.pack(-1, 1, -1)
+
+_ERRNUM = {e.name: int(e) for e in ErrCode}
+_NOTIFNUM = {t.name: int(t) for t in NotificationType}
+_STATENUM = {s.name: int(s) for s in KeeperState}
+
+_EMPTY_RESPONSES = records._EMPTY_RESPONSES
+
+#: The default ACL every create() issues, pre-encoded once via the
+#: spec writer so equivalence is by construction.
+_w = JuteWriter()
+records.write_acl(_w, records.OPEN_ACL_UNSAFE)
+_OPEN_ACL_BYTES = _w.to_bytes()
+del _w
+
+#: Exceptions that mean "this shape is the spec encoder's business":
+#: the fallback re-raises them with its own precise messages.
+_FALLBACK_ERRORS = (KeyError, TypeError, AttributeError, ValueError,
+                    UnicodeError, struct.error)
+
+
+def _acl_bytes(acl):
+    """Encode a non-default ACL list via the spec writer (rare path —
+    the OPEN_ACL_UNSAFE identity hit above covers steady state);
+    None on anything the spec would reject."""
+    try:
+        w = JuteWriter()
+        records.write_acl(w, acl)
+        return w.to_bytes()
+    except Exception:
+        return None
+
+
+class FastEncoder:
+    """Per-codec single-pass encoder (stateless; the class keeps the
+    tier's dispatch tables and the codec-facing API in one place)."""
+
+    __slots__ = ()
+
+    # -- requests (client direction) --
+
+    def encode_request(self, pkt: dict) -> bytes | None:
+        """Framed wire bytes for one request, or None to fall back."""
+        try:
+            fn, opnum = _REQ_FAST[pkt['opcode']]
+            return fn(self, pkt, opnum)
+        except _FALLBACK_ERRORS:
+            return None
+
+    def _rq_bare(self, pkt, opnum):
+        return _REQ_HDR.pack(8, pkt['xid'], opnum)
+
+    def _rq_path(self, pkt, opnum):
+        p = pkt['path']
+        if type(p) is not str:
+            return None
+        pb = p.encode('utf-8')
+        n = len(pb)
+        return _REQ_PATH_HDR.pack(12 + n, pkt['xid'], opnum,
+                                  n if n else -1) + pb
+
+    def _rq_path_watch(self, pkt, opnum):
+        p = pkt['path']
+        wt = pkt['watch']
+        if type(p) is not str or type(wt) is not bool:
+            return None
+        pb = p.encode('utf-8')
+        n = len(pb)
+        return b''.join((
+            _REQ_PATH_HDR.pack(13 + n, pkt['xid'], opnum,
+                               n if n else -1),
+            pb, b'\x01' if wt else b'\x00'))
+
+    def _rq_delete(self, pkt, opnum):
+        p = pkt['path']
+        if type(p) is not str:
+            return None
+        pb = p.encode('utf-8')
+        n = len(pb)
+        return b''.join((
+            _REQ_PATH_HDR.pack(16 + n, pkt['xid'], opnum,
+                               n if n else -1),
+            pb, _INT.pack(pkt['version'])))
+
+    def _rq_add_watch(self, pkt, opnum):
+        # path + mode int — the DELETE shape with AddWatchMode in the
+        # trailing int slot
+        p = pkt['path']
+        m = pkt['mode']
+        if type(p) is not str or not isinstance(m, int) \
+                or not 0 <= m <= 1:
+            return None
+        pb = p.encode('utf-8')
+        n = len(pb)
+        return b''.join((
+            _REQ_PATH_HDR.pack(16 + n, pkt['xid'], opnum,
+                               n if n else -1),
+            pb, _INT.pack(int(m))))
+
+    def _rq_set_data(self, pkt, opnum):
+        p = pkt['path']
+        d = pkt['data']
+        if type(p) is not str:
+            return None
+        pb = p.encode('utf-8')
+        n = len(pb)
+        dn = len(d)
+        return b''.join((
+            _REQ_PATH_HDR.pack(20 + n + dn, pkt['xid'], opnum,
+                               n if n else -1),
+            pb, _INT.pack(dn if dn else -1), d,
+            _INT.pack(pkt['version'])))
+
+    def _rq_create(self, pkt, opnum):
+        p = pkt['path']
+        d = pkt['data']
+        acl = pkt['acl']
+        fl = pkt.get('flags', 0)
+        # CreateFlag NORMALIZES out-of-range flags (e.g. -1 -> 3); only
+        # already-normal values are safe to write verbatim.
+        if type(p) is not str or not isinstance(fl, int) \
+                or not 0 <= fl <= 3:
+            return None
+        if acl is records.OPEN_ACL_UNSAFE:
+            ab = _OPEN_ACL_BYTES
+        else:
+            ab = _acl_bytes(acl)
+            if ab is None:
+                return None
+        pb = p.encode('utf-8')
+        n = len(pb)
+        dn = len(d)
+        return b''.join((
+            _REQ_PATH_HDR.pack(20 + n + dn + len(ab), pkt['xid'],
+                               opnum, n if n else -1),
+            pb, _INT.pack(dn if dn else -1), d, ab,
+            _INT.pack(int(fl))))
+
+    def _multi_sub_body(self, op: dict) -> bytes | None:
+        """One MULTI sub-op request body (no header), single pass;
+        None for any shape the spec tier must judge."""
+        name = op['op']
+        p = op['path']
+        if type(p) is not str:
+            return None
+        pb = p.encode('utf-8')
+        n = len(pb)
+        if name in ('delete', 'check'):
+            return b''.join((_INT.pack(n if n else -1), pb,
+                             _INT.pack(op['version'])))
+        if name == 'set_data':
+            d = op['data']
+            dn = len(d)
+            return b''.join((_INT.pack(n if n else -1), pb,
+                             _INT.pack(dn if dn else -1), d,
+                             _INT.pack(op['version'])))
+        if name == 'create':
+            d = op['data']
+            fl = op.get('flags', 0)
+            if not isinstance(fl, int) or not 0 <= fl <= 3:
+                return None
+            acl = op['acl']
+            if acl is records.OPEN_ACL_UNSAFE:
+                ab = _OPEN_ACL_BYTES
+            else:
+                ab = _acl_bytes(acl)
+                if ab is None:
+                    return None
+            dn = len(d)
+            return b''.join((_INT.pack(n if n else -1), pb,
+                             _INT.pack(dn if dn else -1), d, ab,
+                             _INT.pack(int(fl))))
+        return None
+
+    def _rq_multi(self, pkt, opnum):
+        parts = [b'']                 # [0] holds the framed header
+        size = 8
+        for op in pkt['ops']:
+            t = records.MULTI_OPS.get(op['op'])
+            if t is None:
+                return None
+            body = self._multi_sub_body(op)
+            if body is None:
+                return None
+            parts.append(_MULTI_HDR.pack(t, 0, -1))
+            parts.append(body)
+            size += 9 + len(body)
+        parts.append(_MULTI_END)
+        size += 9
+        parts[0] = _REQ_HDR.pack(size, pkt['xid'], opnum)
+        return b''.join(parts)
+
+    # -- responses (server direction) --
+
+    def encode_response(self, pkt: dict) -> bytes | None:
+        """Framed wire bytes for one reply, or None to fall back."""
+        try:
+            err = pkt.get('err', 'OK')
+            if err == 'OK':
+                fn = _RESP_FAST.get(pkt['opcode'])
+                if fn is not None:
+                    return fn(self, pkt)
+                if pkt['opcode'] in _EMPTY_RESPONSES:
+                    return _RESP_HDR.pack(16, pkt['xid'],
+                                          pkt['zxid'], 0)
+                return None
+            return _RESP_HDR.pack(16, pkt['xid'], pkt['zxid'],
+                                  _ERRNUM[err])
+        except _FALLBACK_ERRORS:
+            return None
+
+    def _rs_stat_only(self, pkt):
+        st = pkt['stat']
+        if len(st) != 11:
+            return None
+        return _RESP_STAT.pack(84, pkt['xid'], pkt['zxid'], 0, *st)
+
+    def _rs_get_data(self, pkt):
+        d = pkt['data']
+        st = pkt['stat']
+        if len(st) != 11:
+            return None
+        dn = len(d)
+        return b''.join((
+            _RESP_BUF_HDR.pack(88 + dn, pkt['xid'], pkt['zxid'], 0,
+                               dn if dn else -1),
+            d, _STAT.pack(*st)))
+
+    def _rs_create(self, pkt):
+        p = pkt['path']
+        if type(p) is not str:
+            return None
+        pb = p.encode('utf-8')
+        n = len(pb)
+        return _RESP_BUF_HDR.pack(20 + n, pkt['xid'], pkt['zxid'], 0,
+                                  n if n else -1) + pb
+
+    def _rs_notification(self, pkt):
+        t = _NOTIFNUM[pkt['type']]
+        s = _STATENUM[pkt['state']]
+        p = pkt['path']
+        if type(p) is not str:
+            return None
+        pb = p.encode('utf-8')
+        n = len(pb)
+        return _NOTIF_HDR.pack(28 + n, pkt['xid'], pkt['zxid'], 0,
+                               t, s, n if n else -1) + pb
+
+    def _rs_children(self, pkt):
+        return self._children(pkt, with_stat=False)
+
+    def _rs_children2(self, pkt):
+        return self._children(pkt, with_stat=True)
+
+    def _children(self, pkt, with_stat):
+        kids = pkt['children']
+        parts = [b'', _INT.pack(len(kids))]      # [0] holds the header
+        size = 4
+        for c in kids:
+            cb = c.encode('utf-8')
+            n = len(cb)
+            parts.append(_INT.pack(n if n else -1))
+            parts.append(cb)
+            size += 4 + n
+        if with_stat:
+            st = pkt['stat']
+            if len(st) != 11:
+                return None
+            parts.append(_STAT.pack(*st))
+            size += 68
+        parts[0] = _RESP_HDR.pack(16 + size, pkt['xid'],
+                                  pkt['zxid'], 0)
+        return b''.join(parts)
+
+    def _rs_multi(self, pkt):
+        parts = [b'']                 # [0] holds the reply header
+        size = 0
+        for res in pkt['results']:
+            name = res['op']
+            if name == 'error':
+                code = _ERRNUM[res['err']]
+                parts.append(_MULTI_HDR.pack(-1, 0, code))
+                parts.append(_INT.pack(code))
+                size += 13
+                continue
+            t = records.MULTI_OPS.get(name)
+            if t is None:
+                return None
+            parts.append(_MULTI_HDR.pack(t, 0, 0))
+            size += 9
+            if name == 'create':
+                p = res['path']
+                if type(p) is not str:
+                    return None
+                pb = p.encode('utf-8')
+                n = len(pb)
+                parts.append(_INT.pack(n if n else -1))
+                parts.append(pb)
+                size += 4 + n
+            elif name == 'set_data':
+                st = res['stat']
+                if len(st) != 11:
+                    return None
+                parts.append(_STAT.pack(*st))
+                size += 68
+        parts.append(_MULTI_END)
+        size += 9
+        parts[0] = _RESP_HDR.pack(16 + size, pkt['xid'],
+                                  pkt['zxid'], 0)
+        return b''.join(parts)
+
+    def _rs_get_acl(self, pkt):
+        acl = pkt['acl']
+        ab = (_OPEN_ACL_BYTES if acl is records.OPEN_ACL_UNSAFE
+              else _acl_bytes(acl))
+        st = pkt['stat']
+        if ab is None or len(st) != 11:
+            return None
+        return b''.join((
+            _RESP_HDR.pack(84 + len(ab), pkt['xid'], pkt['zxid'], 0),
+            ab, _STAT.pack(*st)))
+
+
+#: opcode -> (encoder, wire opcode number); keep the COVERAGE in sync
+#: with records._REQ_WRITERS (SET_WATCHES / SET_WATCHES2 are
+#: resume-time-rare and stay on the spec path, like the C encoder).
+_REQ_FAST = {
+    'GET_CHILDREN': (FastEncoder._rq_path_watch,
+                     int(OpCode.GET_CHILDREN)),
+    'GET_CHILDREN2': (FastEncoder._rq_path_watch,
+                      int(OpCode.GET_CHILDREN2)),
+    'GET_DATA': (FastEncoder._rq_path_watch, int(OpCode.GET_DATA)),
+    'EXISTS': (FastEncoder._rq_path_watch, int(OpCode.EXISTS)),
+    'CREATE': (FastEncoder._rq_create, int(OpCode.CREATE)),
+    'DELETE': (FastEncoder._rq_delete, int(OpCode.DELETE)),
+    'GET_ACL': (FastEncoder._rq_path, int(OpCode.GET_ACL)),
+    'SET_DATA': (FastEncoder._rq_set_data, int(OpCode.SET_DATA)),
+    'SYNC': (FastEncoder._rq_path, int(OpCode.SYNC)),
+    'ADD_WATCH': (FastEncoder._rq_add_watch, int(OpCode.ADD_WATCH)),
+    'MULTI': (FastEncoder._rq_multi, int(OpCode.MULTI)),
+    'CLOSE_SESSION': (FastEncoder._rq_bare, int(OpCode.CLOSE_SESSION)),
+    'PING': (FastEncoder._rq_bare, int(OpCode.PING)),
+}
+
+#: reply opcode -> encoder; keep in sync with records._RESP_WRITERS.
+_RESP_FAST = {
+    'GET_CHILDREN': FastEncoder._rs_children,
+    'GET_CHILDREN2': FastEncoder._rs_children2,
+    'CREATE': FastEncoder._rs_create,
+    'GET_ACL': FastEncoder._rs_get_acl,
+    'GET_DATA': FastEncoder._rs_get_data,
+    'NOTIFICATION': FastEncoder._rs_notification,
+    'EXISTS': FastEncoder._rs_stat_only,
+    'SET_DATA': FastEncoder._rs_stat_only,
+    'MULTI': FastEncoder._rs_multi,
+}

@@ -1,0 +1,203 @@
+"""Jute primitive codec.
+
+ZooKeeper's wire format is built from the Hadoop "jute" record primitives:
+big-endian signed ints, 8-byte longs, single-byte booleans, int-length-
+prefixed byte buffers and UTF-8 strings (reference: lib/jute-buffer.js).
+
+Two asymmetric classes replace the reference's single auto-growing buffer:
+``JuteWriter`` appends to a ``bytearray`` (which grows natively) and
+``JuteReader`` walks a ``memoryview`` with strict bounds checks.  Python
+ints replace the reference's jsbn BigIntegers / raw 8-byte buffers for
+64-bit values (zxid, sessionId): they are decoded to plain ``int`` and
+accepted as such on encode.
+
+Wire quirks preserved intentionally:
+
+- an *empty* buffer encodes its length as -1, not 0
+  (reference: lib/jute-buffer.js:127-130);
+- a *negative* buffer length on decode reads as an empty buffer
+  (reference: lib/jute-buffer.js:99-100).
+"""
+
+from __future__ import annotations
+
+import struct
+
+_INT = struct.Struct('>i')
+_LONG = struct.Struct('>q')
+_struct_error = struct.error
+
+INT32_MIN = -(1 << 31)
+INT32_MAX = (1 << 31) - 1
+INT64_MIN = -(1 << 63)
+INT64_MAX = (1 << 63) - 1
+
+
+class JuteTruncatedError(Exception):
+    """Decode ran off the end of the buffer."""
+
+
+class JuteValueError(Exception):
+    """A value cannot be represented in the wire format."""
+
+
+class JuteWriter:
+    """Appends jute primitives to an internal growable byte buffer."""
+
+    __slots__ = ('_buf',)
+
+    def __init__(self) -> None:
+        self._buf = bytearray()
+
+    def to_bytes(self) -> bytes:
+        return bytes(self._buf)
+
+    def __len__(self) -> int:
+        return len(self._buf)
+
+    def write_byte(self, v: int) -> None:
+        if not (-128 <= v <= 255):
+            raise JuteValueError('byte out of range: %r' % (v,))
+        self._buf.append(v & 0xff)
+
+    def write_bool(self, v: bool) -> None:
+        if not isinstance(v, bool):
+            raise JuteValueError('bool expected, got %r' % (v,))
+        self._buf.append(1 if v else 0)
+
+    def write_int(self, v: int) -> None:
+        if not (INT32_MIN <= v <= INT32_MAX):
+            raise JuteValueError('int32 out of range: %r' % (v,))
+        self._buf += _INT.pack(v)
+
+    def write_long(self, v: int) -> None:
+        if not (INT64_MIN <= v <= INT64_MAX):
+            raise JuteValueError('int64 out of range: %r' % (v,))
+        self._buf += _LONG.pack(v)
+
+    def write_struct(self, st, *vals) -> None:
+        """Encode a run of fixed-width fields in one call — the write
+        twin of :meth:`JuteReader.read_struct` (``st`` is a precompiled
+        big-endian ``struct.Struct`` of concatenated ints/longs)."""
+        try:
+            self._buf += st.pack(*vals)
+        except _struct_error as e:
+            raise JuteValueError(str(e)) from None
+
+    def write_buffer(self, v: bytes) -> None:
+        # Empty buffers go on the wire with length -1
+        # (reference: lib/jute-buffer.js:127-130).
+        if len(v) == 0:
+            self.write_int(-1)
+            return
+        self.write_int(len(v))
+        self._buf += v
+
+    def write_ustring(self, v: str) -> None:
+        self.write_buffer(v.encode('utf-8'))
+
+    def write_length_prefixed(self, fn) -> None:
+        """Reserve a 4-byte length slot, run ``fn(self)``, then backfill
+        the slot with the number of bytes ``fn`` wrote
+        (reference: lib/jute-buffer.js:181-189)."""
+        at = len(self._buf)
+        self._buf += b'\x00\x00\x00\x00'
+        fn(self)
+        _INT.pack_into(self._buf, at, len(self._buf) - at - 4)
+
+
+class JuteReader:
+    """Walks a byte buffer decoding jute primitives with bounds checks."""
+
+    __slots__ = ('_view', '_off', '_end')
+
+    def __init__(self, data, offset: int = 0, end: int | None = None):
+        self._view = memoryview(data)
+        self._off = offset
+        self._end = len(self._view) if end is None else end
+
+    @property
+    def offset(self) -> int:
+        return self._off
+
+    def at_end(self) -> bool:
+        return self._off >= self._end
+
+    def remaining(self) -> int:
+        return self._end - self._off
+
+    def remainder(self) -> bytes:
+        return bytes(self._view[self._off:self._end])
+
+    def skip(self, n: int) -> None:
+        self._need(n)
+        self._off += n
+
+    def _need(self, n: int) -> None:
+        if self._off + n > self._end:
+            raise JuteTruncatedError('need %d bytes at offset %d, have %d'
+                % (n, self._off, self._end - self._off))
+
+    def read_byte(self) -> int:
+        self._need(1)
+        v = self._view[self._off]
+        self._off += 1
+        return v - 256 if v >= 128 else v
+
+    def read_bool(self) -> bool:
+        self._need(1)
+        v = self._view[self._off]
+        self._off += 1
+        if v not in (0, 1):
+            raise JuteValueError('bad bool byte %d' % (v,))
+        return v == 1
+
+    def read_int(self) -> int:
+        self._need(4)
+        (v,) = _INT.unpack_from(self._view, self._off)
+        self._off += 4
+        return v
+
+    def read_long(self) -> int:
+        self._need(8)
+        (v,) = _LONG.unpack_from(self._view, self._off)
+        self._off += 8
+        return v
+
+    def read_struct(self, st) -> tuple:
+        """Decode a run of fixed-width fields in one call.  ``st`` is a
+        precompiled big-endian ``struct.Struct`` whose layout is a
+        concatenation of jute ints/longs — semantically identical to
+        the per-field reads but one bounds check and one C call for
+        the whole run (the scalar decode hot path: see PROFILE.md)."""
+        self._need(st.size)
+        v = st.unpack_from(self._view, self._off)
+        self._off += st.size
+        return v
+
+    def read_buffer(self) -> bytes:
+        ln = self.read_int()
+        # Negative length decodes as the empty buffer
+        # (reference: lib/jute-buffer.js:99-100).
+        if ln < 0:
+            return b''
+        self._need(ln)
+        v = bytes(self._view[self._off:self._off + ln])
+        self._off += ln
+        return v
+
+    def read_ustring(self) -> str:
+        return self.read_buffer().decode('utf-8')
+
+    def read_length_prefixed(self, fn):
+        """Read a 4-byte length, run ``fn`` on a sub-reader restricted to
+        that many bytes, and skip past them regardless of how much ``fn``
+        consumed (reference: lib/jute-buffer.js:167-179)."""
+        ln = self.read_int()
+        if ln < 0:
+            raise JuteValueError('negative scope length %d' % (ln,))
+        self._need(ln)
+        sub = JuteReader(self._view, self._off, self._off + ln)
+        ret = fn(sub)
+        self._off += ln
+        return ret

@@ -1,0 +1,598 @@
+"""ZooKeeper message-body codec.
+
+Encodes and decodes every message the client speaks: the connect
+handshake, the request bodies, and the reply bodies, plus the shared
+Stat / ACL / notification records (reference: lib/zk-buffer.js:22-443).
+
+Packets are plain dicts (mirroring the reference's packet objects) keyed
+by ``opcode`` name strings; ``Stat``, ``ACL`` and ``Id`` are dataclasses.
+64-bit protocol fields (zxid, sessionId, ephemeralOwner, times) are plain
+Python ints.
+
+Unlike the reference — whose server mode cannot encode replies (its
+zk-streams.js:140 calls a ``writeResponse`` that lib/zk-buffer.js never
+defines) — this codec is fully symmetric: ``encode_response`` /
+``decode_request`` make an in-process ZooKeeper server possible.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import struct
+import typing
+
+from .consts import (
+    SPECIAL_XIDS,
+    CreateFlag,
+    ErrCode,
+    KeeperState,
+    NotificationType,
+    OpCode,
+    Perm,
+    err_name,
+)
+from .jute import JuteReader, JuteWriter
+
+
+@dataclasses.dataclass(frozen=True)
+class Id:
+    """An ACL identity (reference: lib/zk-buffer.js:416-426)."""
+
+    scheme: str
+    id: str
+
+
+@dataclasses.dataclass(frozen=True)
+class ACL:
+    """One ACL entry: a permission mask and who it applies to
+    (reference: lib/zk-buffer.js:372-414)."""
+
+    perms: Perm
+    id: Id
+
+
+#: world:anyone with all permissions — the default ACL for new nodes.
+OPEN_ACL_UNSAFE = (ACL(Perm.ALL, Id('world', 'anyone')),)
+
+
+class Stat(typing.NamedTuple):
+    """The 11-field znode stat record (reference: lib/zk-buffer.js:428-442).
+    ``ctime``/``mtime`` are milliseconds since the epoch.
+
+    A NamedTuple, not a dataclass: immutable and field-named either way,
+    but tuple construction happens in C — the decode hot path builds one
+    per stat-bearing reply, and a frozen dataclass pays ~11 Python-level
+    ``object.__setattr__`` calls each (see tools/profile_hotpath.py)."""
+
+    czxid: int = 0
+    mzxid: int = 0
+    ctime: int = 0
+    mtime: int = 0
+    version: int = 0
+    cversion: int = 0
+    aversion: int = 0
+    ephemeralOwner: int = 0
+    dataLength: int = 0
+    numChildren: int = 0
+    pzxid: int = 0
+
+
+#: The Stat record's fixed 68-byte layout, decoded in one call — field
+#: order matches the Stat dataclass exactly.
+_STAT_STRUCT = struct.Struct('>qqqqiiiqiiq')
+
+
+def read_stat(r: JuteReader) -> Stat:
+    return Stat(*r.read_struct(_STAT_STRUCT))
+
+
+def write_stat(w: JuteWriter, s: Stat) -> None:
+    # one 68-byte pack; field order is the Stat tuple order
+    w.write_struct(_STAT_STRUCT, *s)
+
+
+def read_acl(r: JuteReader) -> list[ACL]:
+    count = r.read_int()
+    out = []
+    for _ in range(count):
+        perms = Perm(r.read_int())
+        scheme = r.read_ustring()
+        ident = r.read_ustring()
+        out.append(ACL(perms, Id(scheme, ident)))
+    return out
+
+
+def write_acl(w: JuteWriter, acl) -> None:
+    w.write_int(len(acl))
+    for entry in acl:
+        w.write_int(int(entry.perms))
+        w.write_ustring(entry.id.scheme)
+        w.write_ustring(entry.id.id)
+
+
+# -- Connect handshake (reference: lib/zk-buffer.js:22-56) --
+
+def write_connect_request(w: JuteWriter, pkt: dict) -> None:
+    w.write_int(pkt['protocolVersion'])
+    w.write_long(pkt['lastZxidSeen'])
+    w.write_int(pkt['timeOut'])
+    w.write_long(pkt['sessionId'])
+    w.write_buffer(pkt['passwd'])
+
+
+def read_connect_request(r: JuteReader) -> dict:
+    return {
+        'protocolVersion': r.read_int(),
+        'lastZxidSeen': r.read_long(),
+        'timeOut': r.read_int(),
+        'sessionId': r.read_long(),
+        'passwd': r.read_buffer(),
+    }
+
+
+def write_connect_response(w: JuteWriter, pkt: dict) -> None:
+    w.write_int(pkt['protocolVersion'])
+    w.write_int(pkt['timeOut'])
+    w.write_long(pkt['sessionId'])
+    w.write_buffer(pkt['passwd'])
+
+
+def read_connect_response(r: JuteReader) -> dict:
+    return {
+        'protocolVersion': r.read_int(),
+        'timeOut': r.read_int(),
+        'sessionId': r.read_long(),
+        'passwd': r.read_buffer(),
+    }
+
+
+# -- Requests (reference: lib/zk-buffer.js:58-273) --
+
+def _write_path(w: JuteWriter, pkt: dict) -> None:
+    w.write_ustring(pkt['path'])
+
+
+def _write_path_watch(w: JuteWriter, pkt: dict) -> None:
+    w.write_ustring(pkt['path'])
+    w.write_bool(pkt['watch'])
+
+
+def _read_path(r: JuteReader, pkt: dict) -> None:
+    pkt['path'] = r.read_ustring()
+
+
+def _read_path_watch(r: JuteReader, pkt: dict) -> None:
+    pkt['path'] = r.read_ustring()
+    pkt['watch'] = r.read_bool()
+
+
+def _write_create(w: JuteWriter, pkt: dict) -> None:
+    w.write_ustring(pkt['path'])
+    w.write_buffer(pkt['data'])
+    write_acl(w, pkt['acl'])
+    w.write_int(int(CreateFlag(pkt.get('flags', 0))))
+
+
+def _read_create(r: JuteReader, pkt: dict) -> None:
+    pkt['path'] = r.read_ustring()
+    pkt['data'] = r.read_buffer()
+    pkt['acl'] = read_acl(r)
+    pkt['flags'] = CreateFlag(r.read_int())
+
+
+def _write_delete(w: JuteWriter, pkt: dict) -> None:
+    w.write_ustring(pkt['path'])
+    w.write_int(pkt['version'])
+
+
+def _read_delete(r: JuteReader, pkt: dict) -> None:
+    pkt['path'] = r.read_ustring()
+    pkt['version'] = r.read_int()
+
+
+def _write_set_data(w: JuteWriter, pkt: dict) -> None:
+    w.write_ustring(pkt['path'])
+    w.write_buffer(pkt['data'])
+    w.write_int(pkt['version'])
+
+
+def _read_set_data(r: JuteReader, pkt: dict) -> None:
+    pkt['path'] = r.read_ustring()
+    pkt['data'] = r.read_buffer()
+    pkt['version'] = r.read_int()
+
+
+def _write_check(w: JuteWriter, pkt: dict) -> None:
+    w.write_ustring(pkt['path'])
+    w.write_int(pkt['version'])
+
+
+def _read_check(r: JuteReader, pkt: dict) -> None:
+    pkt['path'] = r.read_ustring()
+    pkt['version'] = r.read_int()
+
+
+# -- MULTI (opcode 14): all-or-nothing transactions --------------------
+#
+# The jute MultiHeader framing (upstream ZooKeeper MultiTransactionRecord
+# / MultiResponse; the reference client never implemented opcode 14 —
+# its consts table stops at naming it): each sub-op travels as
+# ``int type | bool done | int err`` followed by the op body, terminated
+# by a header with ``type == -1, done == True``.  Request sub-op bodies
+# reuse the single-op request shapes (create / delete / setData /
+# check); response results carry the single-op reply bodies for OK
+# results and an ``int err`` body (type -1) for error results.  The
+# whole batch is ONE frame, ONE server transaction, ONE WAL record
+# (server/store.py ``ZKDatabase.multi``).
+
+#: Sub-ops a MULTI may carry, by wire type number.
+MULTI_OPS = {
+    'create': int(OpCode.CREATE),
+    'delete': int(OpCode.DELETE),
+    'set_data': int(OpCode.SET_DATA),
+    'check': int(OpCode.CHECK),
+}
+_MULTI_OP_NAMES = {v: k for k, v in MULTI_OPS.items()}
+
+_MULTI_SUB_WRITERS = {
+    'create': _write_create,
+    'delete': _write_delete,
+    'set_data': _write_set_data,
+    'check': _write_check,
+}
+_MULTI_SUB_READERS = {
+    'create': _read_create,
+    'delete': _read_delete,
+    'set_data': _read_set_data,
+    'check': _read_check,
+}
+
+
+def _write_multi_header(w: JuteWriter, type_: int, done: bool,
+                        err: int) -> None:
+    w.write_int(type_)
+    w.write_bool(done)
+    w.write_int(err)
+
+
+def _write_multi(w: JuteWriter, pkt: dict) -> None:
+    for op in pkt['ops']:
+        name = op['op']
+        if name not in MULTI_OPS:
+            raise ValueError('unsupported multi sub-op %r' % (name,))
+        _write_multi_header(w, MULTI_OPS[name], False, -1)
+        _MULTI_SUB_WRITERS[name](w, op)
+    _write_multi_header(w, -1, True, -1)
+
+
+def _read_multi(r: JuteReader, pkt: dict) -> None:
+    ops: list[dict] = []
+    while True:
+        type_ = r.read_int()
+        done = r.read_bool()
+        r.read_int()                  # err: always -1 in requests
+        if done:
+            if type_ != -1:
+                raise ValueError(
+                    'multi terminator carries type %d' % (type_,))
+            break
+        name = _MULTI_OP_NAMES.get(type_)
+        if name is None:
+            raise ValueError('unsupported multi sub-op type %d'
+                             % (type_,))
+        sub: dict = {'op': name}
+        _MULTI_SUB_READERS[name](r, sub)
+        ops.append(sub)
+    pkt['ops'] = ops
+
+
+def _read_multi_resp(r: JuteReader, pkt: dict) -> None:
+    results: list[dict] = []
+    while True:
+        type_ = r.read_int()
+        done = r.read_bool()
+        err = r.read_int()
+        if done:
+            break
+        if type_ == -1:
+            # ErrorResult: the body repeats the error code as an int
+            r.read_int()
+            results.append({'op': 'error', 'err': err_name(err)})
+            continue
+        name = _MULTI_OP_NAMES.get(type_)
+        if name is None:
+            raise ValueError('unsupported multi result type %d'
+                             % (type_,))
+        res: dict = {'op': name}
+        if name == 'create':
+            res['path'] = r.read_ustring()
+        elif name == 'set_data':
+            res['stat'] = read_stat(r)
+        results.append(res)           # delete / check: header only
+    pkt['results'] = results
+
+
+def _write_multi_resp(w: JuteWriter, pkt: dict) -> None:
+    for res in pkt['results']:
+        name = res['op']
+        if name == 'error':
+            code = int(ErrCode[res['err']])
+            _write_multi_header(w, -1, False, code)
+            w.write_int(code)
+            continue
+        if name not in MULTI_OPS:
+            raise ValueError('unsupported multi result %r' % (name,))
+        _write_multi_header(w, MULTI_OPS[name], False, 0)
+        if name == 'create':
+            w.write_ustring(res['path'])
+        elif name == 'set_data':
+            write_stat(w, res['stat'])
+    _write_multi_header(w, -1, True, -1)
+
+
+#: The three watch lists in a SET_WATCHES body, in wire order
+#: (reference: lib/zk-buffer.js:233-273).
+SET_WATCHES_KINDS = ('dataChanged', 'createdOrDestroyed', 'childrenChanged')
+
+#: SET_WATCHES2 (opcode 107, upstream ZooKeeper SetWatches2): the
+#: legacy three lists followed by the two persistent-watch lists.
+SET_WATCHES2_KINDS = SET_WATCHES_KINDS + ('persistent',
+                                          'persistentRecursive')
+
+
+def _write_watch_lists(w: JuteWriter, pkt: dict, kinds) -> None:
+    w.write_long(pkt['relZxid'])
+    events = pkt.get('events', {})
+    for kind in kinds:
+        paths = events.get(kind, ())
+        w.write_int(len(paths))
+        for p in paths:
+            w.write_ustring(p)
+
+
+def _read_watch_lists(r: JuteReader, pkt: dict, kinds) -> None:
+    pkt['relZxid'] = r.read_long()
+    pkt['events'] = {}
+    for kind in kinds:
+        count = r.read_int()
+        pkt['events'][kind] = [r.read_ustring() for _ in range(count)]
+
+
+def _write_set_watches(w: JuteWriter, pkt: dict) -> None:
+    _write_watch_lists(w, pkt, SET_WATCHES_KINDS)
+
+
+def _read_set_watches(r: JuteReader, pkt: dict) -> None:
+    _read_watch_lists(r, pkt, SET_WATCHES_KINDS)
+
+
+def _write_set_watches2(w: JuteWriter, pkt: dict) -> None:
+    _write_watch_lists(w, pkt, SET_WATCHES2_KINDS)
+
+
+def _read_set_watches2(r: JuteReader, pkt: dict) -> None:
+    _read_watch_lists(r, pkt, SET_WATCHES2_KINDS)
+
+
+def _write_add_watch(w: JuteWriter, pkt: dict) -> None:
+    # AddWatchRequest: path ustring + mode int (AddWatchMode)
+    w.write_ustring(pkt['path'])
+    w.write_int(pkt['mode'])
+
+
+def _read_add_watch(r: JuteReader, pkt: dict) -> None:
+    pkt['path'] = r.read_ustring()
+    pkt['mode'] = r.read_int()
+
+
+_REQ_WRITERS = {
+    'GET_CHILDREN': _write_path_watch,
+    'GET_CHILDREN2': _write_path_watch,
+    'GET_DATA': _write_path_watch,
+    'EXISTS': _write_path_watch,
+    'CREATE': _write_create,
+    'DELETE': _write_delete,
+    'GET_ACL': _write_path,
+    'SET_DATA': _write_set_data,
+    'SYNC': _write_path,
+    'SET_WATCHES': _write_set_watches,
+    'SET_WATCHES2': _write_set_watches2,
+    'ADD_WATCH': _write_add_watch,
+    'MULTI': _write_multi,
+    # Header-only requests (reference: lib/zk-buffer.js:129-132):
+    'CLOSE_SESSION': None,
+    'PING': None,
+}
+
+_REQ_READERS = {
+    'GET_CHILDREN': _read_path_watch,
+    'GET_CHILDREN2': _read_path_watch,
+    'GET_DATA': _read_path_watch,
+    'EXISTS': _read_path_watch,
+    'CREATE': _read_create,
+    'DELETE': _read_delete,
+    'GET_ACL': _read_path,
+    'SET_DATA': _read_set_data,
+    'SYNC': _read_path,
+    'SET_WATCHES': _read_set_watches,
+    'SET_WATCHES2': _read_set_watches2,
+    'ADD_WATCH': _read_add_watch,
+    'MULTI': _read_multi,
+    'CLOSE_SESSION': None,
+    'PING': None,
+}
+
+
+def write_request(w: JuteWriter, pkt: dict) -> None:
+    """Encode a request: 8-byte header (xid, opcode) then the body
+    (reference: lib/zk-buffer.js:97-136)."""
+    opcode = pkt['opcode']
+    if opcode not in _REQ_WRITERS:
+        raise ValueError('unsupported opcode %r' % (opcode,))
+    w.write_int(pkt['xid'])
+    w.write_int(int(OpCode[opcode]))
+    body = _REQ_WRITERS[opcode]
+    if body is not None:
+        body(w, pkt)
+
+
+def read_request(r: JuteReader) -> dict:
+    """Decode a request (server direction)
+    (reference: lib/zk-buffer.js:58-95)."""
+    pkt: dict = {}
+    pkt['xid'] = r.read_int()
+    pkt['opcode'] = OpCode(r.read_int()).name
+    if pkt['opcode'] not in _REQ_READERS:
+        raise ValueError('unsupported opcode %r' % (pkt['opcode'],))
+    body = _REQ_READERS[pkt['opcode']]
+    if body is not None:
+        body(r, pkt)
+    return pkt
+
+
+# -- Responses (reference: lib/zk-buffer.js:275-370) --
+
+def _read_get_children_resp(r: JuteReader, pkt: dict) -> None:
+    count = r.read_int()
+    pkt['children'] = [r.read_ustring() for _ in range(count)]
+    if pkt['opcode'] == 'GET_CHILDREN2':
+        pkt['stat'] = read_stat(r)
+
+
+def _read_create_resp(r: JuteReader, pkt: dict) -> None:
+    pkt['path'] = r.read_ustring()
+
+
+def _read_stat_only_resp(r: JuteReader, pkt: dict) -> None:
+    pkt['stat'] = read_stat(r)
+
+
+def _read_get_acl_resp(r: JuteReader, pkt: dict) -> None:
+    pkt['acl'] = read_acl(r)
+    pkt['stat'] = read_stat(r)
+
+
+def _read_get_data_resp(r: JuteReader, pkt: dict) -> None:
+    pkt['data'] = r.read_buffer()
+    pkt['stat'] = read_stat(r)
+
+
+def _read_notification(r: JuteReader, pkt: dict) -> None:
+    pkt['type'] = NotificationType(r.read_int()).name
+    pkt['state'] = KeeperState(r.read_int()).name
+    pkt['path'] = r.read_ustring()
+
+
+#: Reply opcodes whose body is empty — the header error code alone carries
+#: the result (reference: lib/zk-buffer.js:316-325).
+_EMPTY_RESPONSES = frozenset(
+    ('SET_WATCHES', 'SET_WATCHES2', 'ADD_WATCH', 'PING', 'SYNC',
+     'DELETE', 'CLOSE_SESSION', 'AUTH'))
+
+_RESP_READERS = {
+    'GET_CHILDREN': _read_get_children_resp,
+    'GET_CHILDREN2': _read_get_children_resp,
+    'CREATE': _read_create_resp,
+    'GET_ACL': _read_get_acl_resp,
+    'GET_DATA': _read_get_data_resp,
+    'NOTIFICATION': _read_notification,
+    'EXISTS': _read_stat_only_resp,
+    'SET_DATA': _read_stat_only_resp,
+    'MULTI': _read_multi_resp,
+}
+
+
+#: The 16-byte reply header (xid:int32, zxid:int64, err:int32), decoded
+#: in one call (reference: lib/zk-buffer.js:281-289).
+_REPLY_HDR_STRUCT = struct.Struct('>iqi')
+
+
+def read_response(r: JuteReader, xid_map: dict[int, str]) -> dict:
+    """Decode a reply.  The opcode comes from the special-xid table for
+    reserved xids, otherwise from the caller's xid -> opcode map recorded
+    at encode time (reference: lib/zk-buffer.js:281-331)."""
+    xid, zxid, errc = r.read_struct(_REPLY_HDR_STRUCT)
+    pkt: dict = {'xid': xid, 'zxid': zxid, 'err': err_name(errc)}
+    opcode = SPECIAL_XIDS.get(pkt['xid'])
+    if opcode is None:
+        # One reply per xid: pop so the map cannot grow without bound
+        # over a long-lived connection.
+        opcode = xid_map.pop(pkt['xid'], None)
+    if opcode is None:
+        raise ValueError('reply xid %d matches no request' % (pkt['xid'],))
+    pkt['opcode'] = opcode
+    if pkt['err'] != 'OK':
+        return pkt
+    if opcode in _EMPTY_RESPONSES:
+        return pkt
+    body = _RESP_READERS.get(opcode)
+    if body is None:
+        raise ValueError('unsupported reply opcode %r' % (opcode,))
+    body(r, pkt)
+    return pkt
+
+
+# -- Server-direction response encoding (no reference equivalent: the
+#    reference's zk-streams.js:140 calls an undefined writeResponse) --
+
+def _write_get_children_resp(w: JuteWriter, pkt: dict) -> None:
+    children = pkt['children']
+    w.write_int(len(children))
+    for c in children:
+        w.write_ustring(c)
+    if pkt['opcode'] == 'GET_CHILDREN2':
+        write_stat(w, pkt['stat'])
+
+
+def _write_create_resp(w: JuteWriter, pkt: dict) -> None:
+    w.write_ustring(pkt['path'])
+
+
+def _write_stat_only_resp(w: JuteWriter, pkt: dict) -> None:
+    write_stat(w, pkt['stat'])
+
+
+def _write_get_acl_resp(w: JuteWriter, pkt: dict) -> None:
+    write_acl(w, pkt['acl'])
+    write_stat(w, pkt['stat'])
+
+
+def _write_get_data_resp(w: JuteWriter, pkt: dict) -> None:
+    w.write_buffer(pkt['data'])
+    write_stat(w, pkt['stat'])
+
+
+def _write_notification(w: JuteWriter, pkt: dict) -> None:
+    w.write_int(int(NotificationType[pkt['type']]))
+    w.write_int(int(KeeperState[pkt['state']]))
+    w.write_ustring(pkt['path'])
+
+
+_RESP_WRITERS = {
+    'GET_CHILDREN': _write_get_children_resp,
+    'GET_CHILDREN2': _write_get_children_resp,
+    'CREATE': _write_create_resp,
+    'GET_ACL': _write_get_acl_resp,
+    'GET_DATA': _write_get_data_resp,
+    'NOTIFICATION': _write_notification,
+    'EXISTS': _write_stat_only_resp,
+    'SET_DATA': _write_stat_only_resp,
+    'MULTI': _write_multi_resp,
+}
+
+
+def write_response(w: JuteWriter, pkt: dict) -> None:
+    """Encode a reply (server direction): 16-byte header (xid, zxid, err)
+    then the body if the error is OK and the opcode has one."""
+    err = pkt.get('err', 'OK')
+    w.write_struct(_REPLY_HDR_STRUCT, pkt['xid'], pkt['zxid'],
+                   int(ErrCode[err]))
+    if err != 'OK':
+        return
+    opcode = pkt['opcode']
+    if opcode in _EMPTY_RESPONSES:
+        return
+    body = _RESP_WRITERS.get(opcode)
+    if body is None:
+        raise ValueError('unsupported reply opcode %r' % (opcode,))
+    body(w, pkt)

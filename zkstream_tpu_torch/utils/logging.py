@@ -1,0 +1,115 @@
+"""Structured logging with child-context accretion.
+
+The reference threads a bunyan logger through every layer: the client
+accepts an injectable ``log`` option (reference: lib/client.js:34-45),
+and each component derives a child logger that accretes key-value
+context — component name, then zkAddress/zkPort on the connection
+(reference: lib/connection-fsm.js:93-96), then sessionId once the
+handshake lands (reference: lib/connection-fsm.js:209-211,
+lib/zk-session.js:179-181) — so any line can be traced to its
+connection and session without grepping for adjacent lines.
+
+This is the stdlib-logging equivalent: a lightweight ``Logger`` facade
+over a ``logging.Logger`` whose ``child(**ctx)`` returns a new facade
+with merged context.  Context renders as a bracketed suffix on the
+message and also travels structured on the record as ``zk_context``
+(for JSON handlers).  Users may inject either a stdlib logger or an
+existing facade, as with the reference's ``log`` option.
+"""
+
+from __future__ import annotations
+
+import logging as _logging
+
+#: bunyan's TRACE sits below DEBUG; register the level once.
+TRACE = 5
+_logging.addLevelName(TRACE, 'TRACE')
+
+
+class Logger:
+    """A context-accreting facade over a stdlib logger."""
+
+    def __init__(self, base: '_logging.Logger | Logger | None' = None,
+                 context: dict | None = None):
+        if isinstance(base, Logger):
+            context = {**base.context, **(context or {})}
+            base = base.base
+        self.base: _logging.Logger = (
+            base if base is not None
+            else _logging.getLogger('zkstream_tpu_torch'))
+        self.context: dict = dict(context or {})
+
+    def child(self, **ctx) -> 'Logger':
+        """A new facade with ``ctx`` merged over this one's context
+        (the analogue of bunyan's ``log.child({...})``)."""
+        return Logger(self.base, {**self.context, **ctx})
+
+    @staticmethod
+    def _render(msg: str, args: tuple) -> str:
+        """Render ``msg % args`` with the mismatch fallback both _log
+        and exception() share.  A format/arg mismatch must stay
+        contained like stdlib logging's deferred formatting would —
+        never raise into an FSM state handler."""
+        if args:
+            try:
+                msg = msg % args
+            except (TypeError, ValueError):
+                msg = '%s %r' % (msg, args)
+        return msg
+
+    def _log(self, level: int, msg: str, *args) -> None:
+        if not self.base.isEnabledFor(level):
+            return
+        # Render args BEFORE appending the context suffix: a context
+        # value containing '%' (e.g. an IPv6 zone id in zkAddress) must
+        # not be interpreted as a format directive.
+        msg = self._render(msg, args)
+        if self.context:
+            msg += ' [%s]' % ' '.join(
+                '%s=%s' % (k, v) for k, v in self.context.items())
+        # stacklevel 3: hop over _log and the level-method wrapper so
+        # %(filename)s/%(lineno)d point at the real call site.
+        self.base.log(level, msg, stacklevel=3,
+                      extra={'zk_context': dict(self.context)})
+
+    def trace(self, msg: str, *args) -> None:
+        self._log(TRACE, msg, *args)
+
+    def debug(self, msg: str, *args) -> None:
+        self._log(_logging.DEBUG, msg, *args)
+
+    def info(self, msg: str, *args) -> None:
+        self._log(_logging.INFO, msg, *args)
+
+    def warning(self, msg: str, *args) -> None:
+        self._log(_logging.WARNING, msg, *args)
+
+    warn = warning
+
+    def error(self, msg: str, *args) -> None:
+        self._log(_logging.ERROR, msg, *args)
+
+    def exception(self, msg: str, *args) -> None:
+        """Error-level log with the ACTIVE exception's traceback
+        appended — for except-blocks that swallow an error to keep a
+        loop alive (e.g. the multihost cadence) but must not hide it."""
+        if not self.base.isEnabledFor(_logging.ERROR):
+            return
+        import sys
+        import traceback
+
+        if sys.exc_info()[0] is None:
+            # no active exception: format_exc() would append a
+            # confusing 'NoneType: None' tail — plain error instead
+            self._log(_logging.ERROR, '%s', self._render(msg, args))
+            return
+        # render the caller's args FIRST so a literal '%' in the
+        # rendered message cannot collide with the traceback's %s slot
+        # (same invariant _log keeps for context suffixes)
+        self._log(_logging.ERROR, '%s\n%s', self._render(msg, args),
+                  traceback.format_exc())
+
+    def fatal(self, msg: str, *args) -> None:
+        """Bunyan's top level (the reference logs at fatal before
+        crash-on-bug throws)."""
+        self._log(_logging.CRITICAL, msg, *args)

@@ -7,9 +7,9 @@ Run from the repository root on a machine with an H100:
 
 Phases (any failure exits non-zero; nothing is caught):
 
-1. Build kernel K1 (``zkstream_tpu_torch/csrc/wire_scan.cu``) with
-   nvcc for sm_90a into ``build/`` and print ptxas's register/spill
-   report.
+1. Build kernels K1 and K2 (one library from
+   ``zkstream_tpu_torch/csrc/wire_scan.cu``) with nvcc for sm_90a into
+   ``build/`` and print ptxas's register/spill report of each.
 2. Hold K1 against its plain torch version on the card, exactly
    (integer planes, tolerance 0): the deployed-shaped corpus (16384
    streams x 64 mixed-opcode frames, ~247 MiB, seed 42) and an
@@ -26,7 +26,27 @@ Phases (any failure exits non-zero; nothing is caught):
    at seeded offsets, plus one connection carrying a bad length
    prefix.  Every delivery must equal the scalar codec's, and K1's
    launches (counted from 0 just before this phase) must equal the
-   ingest's device ticks.
+   ingest's device ticks; K2 is not launched.
+5. Hold K2 against its plain torch version on the card, exactly: the
+   corpus at ``max_data=256`` (its GET_DATA payloads are exactly 256
+   B, so every data frame fits), the adversarial batch, and a
+   GET_DATA-adversarial batch (``corpus.getdata_fleet``: -1 empty
+   buffers, truncated Stats, lengths that overrun the frame or sit
+   near INT32_MAX, header-only frames).  ``wire_full_decode`` on the
+   corpus must equal ``wire_pipeline_step`` + ``getdata_bodies``.
+6. Timings: K2 and its plain version by CUDA events in turns at the
+   corpus shape, K2's bound at 3.35 TB/s, and at the ingest's bucket
+   shape the device-body tick step (K2 + the torch body parse + the
+   pack) with its parts, each timed alone: the decode, K2,
+   ``parse_reply_bodies``, ``parse_list_bodies``, the pack, and the
+   readback of the packed arrays.
+7. The device-body path: ``FleetIngest(device='cuda',
+   body_mode='device', bypass_bytes=0, warm='block', max_frames=64)``
+   serves the same 1,025 connections as phase 4.  Every delivery must
+   equal the scalar codec's, the bad prefix must give BAD_LENGTH, K2's
+   launches (counted from 0 just before this phase) must equal the
+   device ticks, K1 must not launch, and no body may fall back to the
+   scalar reader (the corpus fits the default widths).
 
 The last lines are the card's name and power limit, one JSON object of
 kernels, and ``{"ok": true, "device": {...}}``.  Without a CUDA device
@@ -48,8 +68,9 @@ import numpy as np
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM published memory rate
 B_CORPUS = 16384               # streams per tick, as bench.py's corpus
 FRAMES = 64
-FLEET = 1024                   # live connections in the ingest phase
+FLEET = 1024                   # live connections in the ingest phases
 SEED = 42
+MAX_DATA = 256                 # FleetIngest's default GET_DATA width
 
 
 def _log(msg: str) -> None:
@@ -120,6 +141,38 @@ def _scalar_drain(PacketCodec, chunks, xid_map):
     return pkts, code
 
 
+def _check_fleet(conns, wants) -> int:
+    """Every connection's deliveries equal the scalar drain's; returns
+    the packet count."""
+    n_pkts = 0
+    for i, (conn, (want_pkts, want_code)) in enumerate(zip(conns, wants)):
+        code = getattr(conn.err, 'code', None)
+        if conn.got != want_pkts or code != want_code:
+            raise AssertionError('connection %d: %d packets (err %s) vs '
+                                 'scalar %d (err %s)' % (
+                                     i, len(conn.got), code,
+                                     len(want_pkts), want_code))
+        n_pkts += len(conn.got)
+    code = getattr(conns[-1].err, 'code', None)
+    if code != 'BAD_LENGTH':
+        raise AssertionError('bad-prefix connection raised %r' % (code,))
+    return n_pkts
+
+
+def _timed(ing, step_s: list) -> None:
+    """Time the device half of each tick (staging fill, H2D copy, the
+    step, pack, readbacks) on the host clock around its synchronize."""
+    run_step = ing._run_step
+
+    def timed_step(bk, active):
+        t = time.perf_counter()
+        out = run_step(bk, active)
+        step_s.append(time.perf_counter() - t)
+        return out
+
+    ing._run_step = timed_step
+
+
 def _codec(PacketCodec, xid_map):
     c = PacketCodec()
     c.handshaking = False
@@ -155,7 +208,9 @@ def main() -> int:
     from zkstream_tpu_torch import corpus
     from zkstream_tpu_torch.entry import entry
     from zkstream_tpu_torch.io.ingest import FleetIngest
+    from zkstream_tpu_torch.ops import full_scan as K2
     from zkstream_tpu_torch.ops import pipeline as P
+    from zkstream_tpu_torch.ops import replies as R
     from zkstream_tpu_torch.ops import wire_scan as W
     from zkstream_tpu_torch.protocol.framing import PacketCodec
 
@@ -171,9 +226,11 @@ def main() -> int:
     # -- 1. build --
     t0 = time.perf_counter()
     W.load()
+    K2.load()
     _log('# phase 1 build: %.2f s' % (time.perf_counter() - t0))
     for line in W.build_report().splitlines():
-        if 'registers' in line or 'spill' in line:
+        if ('registers' in line or 'spill' in line
+                or 'Compiling entry' in line):
             _log('# ptxas: ' + line.strip())
 
     # -- 2. K1 against its plain version --
@@ -260,47 +317,28 @@ def main() -> int:
     for s in streams:
         a, b = sorted(rng.randint(0, len(s) + 1, 2).tolist())
         chunks.append([s[:a], s[a:b], s[b:]])
+    wants = [_scalar_drain(PacketCodec, ch, m)
+             for ch, m in zip(chunks, xmaps)]
     conns = [StandIn(_codec(PacketCodec, m)) for m in xmaps]
     del db, dl, da, dal, got, want, st
     torch.cuda.synchronize()
     ing = FleetIngest(device='cuda', body_mode='host', bypass_bytes=0,
                       warm='block', max_frames=FRAMES)
-    # the device half of each tick (staging fill, H2D copy, K1, pack,
-    # readback), timed on the host clock around its synchronize
     step_s: list = []
-    run_step = ing._run_step
-
-    def timed_step(bk, active):
-        t = time.perf_counter()
-        out = run_step(bk, active)
-        step_s.append(time.perf_counter() - t)
-        return out
-
-    ing._run_step = timed_step
-    W.launches = 0
+    _timed(ing, step_s)
+    W.launches = K2.launches = 0
     t0 = time.perf_counter()
     asyncio.run(_serve(ing, conns, chunks))
     wall = time.perf_counter() - t0
-    launches = W.launches
-    if not (ing.ticks > 0 and launches == ing.ticks
+    launches, k2_host = W.launches, K2.launches
+    if not (ing.ticks > 0 and launches == ing.ticks and k2_host == 0
             and ing.ticks_scalar == 0 and ing.ticks_warming == 0):
         raise AssertionError('ingest ticks %d (scalar %d, warming %d) vs '
-                             'K1 launches %d' % (ing.ticks, ing.ticks_scalar,
-                                                 ing.ticks_warming,
-                                                 launches))
-    n_pkts = 0
-    for i, (conn, ch) in enumerate(zip(conns, chunks)):
-        want_pkts, want_code = _scalar_drain(PacketCodec, ch, xmaps[i])
-        code = getattr(conn.err, 'code', None)
-        if conn.got != want_pkts or code != want_code:
-            raise AssertionError('connection %d: %d packets (err %s) vs '
-                                 'scalar %d (err %s)' % (
-                                     i, len(conn.got), code,
-                                     len(want_pkts), want_code))
-        n_pkts += len(conn.got)
+                             'K1 launches %d, K2 launches %d' % (
+                                 ing.ticks, ing.ticks_scalar,
+                                 ing.ticks_warming, launches, k2_host))
+    n_pkts = _check_fleet(conns, wants)
     code = getattr(conns[-1].err, 'code', None)
-    if code != 'BAD_LENGTH':
-        raise AssertionError('bad-prefix connection raised %r' % (code,))
     tick_ms = ing.tick_hist.sum() / max(ing.tick_hist.count(), 1)
     _log('# phase 4 on %s: %d connections, %d packets equal to the scalar '
          'codec, bad prefix -> %s; %d device ticks = %d K1 launches; '
@@ -309,6 +347,173 @@ def main() -> int:
          % (smi, len(conns), n_pkts, code, ing.ticks, launches, tick_ms,
             sum(step_s) * 1e3 / len(step_s),
             ' '.join('%.3f' % (x * 1e3) for x in step_s), wall))
+
+    # -- 5. K2 against its plain version --
+    t0 = time.perf_counter()
+    db, dl = P.batch_to_device(buf_np, lens_np, dev)
+    got2 = K2.full_scan(db, dl, FRAMES, MAX_DATA)
+    want2 = K2.full_scan_plain(db, dl, FRAMES, MAX_DATA)
+    torch.cuda.synchronize()
+    err2 = _equal_dicts(torch, want2, got2, 'K2 corpus')
+    data_frames = int((got2['dlen_raw'] == MAX_DATA).sum())
+    want_data = B_CORPUS * sum(s['kind'] == 'data' for s in slots)
+    if data_frames != want_data:
+        raise AssertionError('K2 corpus: %d GET_DATA frames of %d bytes, '
+                             'expected %d' % (data_frames, MAX_DATA,
+                                              want_data))
+    bound2_b = K2.bound_bytes(want2, MAX_DATA)
+    del got2, want2
+    da, dal = P.batch_to_device(abuf, alens, dev)
+    err2 = max(err2, _equal_dicts(
+        torch, K2.full_scan_plain(da, dal, FRAMES, MAX_DATA),
+        K2.full_scan(da, dal, FRAMES, MAX_DATA), 'K2 adversarial'))
+    gbuf, glens = corpus.getdata_fleet(seed=7, B=1024, L=2048,
+                                       max_data=MAX_DATA)
+    dg, dgl = P.batch_to_device(gbuf, glens, dev)
+    err2 = max(err2, _equal_dicts(
+        torch, K2.full_scan_plain(dg, dgl, FRAMES, MAX_DATA),
+        K2.full_scan(dg, dgl, FRAMES, MAX_DATA), 'K2 getdata'))
+    st_k, gd_k = P.wire_full_decode(db, dl, FRAMES, MAX_DATA)
+    st_p = P.wire_pipeline_step(db, dl, FRAMES)
+    gd_p = P.getdata_bodies(db, st_p, MAX_DATA)
+    for f in st_p._fields:
+        if not torch.equal(getattr(st_p, f), getattr(st_k, f)):
+            raise AssertionError('wire_full_decode: WireStats.%s' % f)
+    for f in gd_p._fields[:-1]:
+        if not torch.equal(getattr(gd_p, f), getattr(gd_k, f)):
+            raise AssertionError('wire_full_decode: GetDataBodies.%s' % f)
+    for f in gd_p.stat_after_data._fields:
+        if not torch.equal(getattr(gd_p.stat_after_data, f),
+                           getattr(gd_k.stat_after_data, f)):
+            raise AssertionError('wire_full_decode: stat_after_data.%s'
+                                 % f)
+    del st_k, gd_k, st_p, gd_p
+    _log('# phase 5 K2 == plain: corpus %d GET_DATA frames of %d B, '
+         'adversarial B=%d, getdata B=%d; max |d| %d; wire_full_decode == '
+         'wire_pipeline_step + getdata_bodies on the corpus (%.2f s)' % (
+             data_frames, MAX_DATA, abuf.shape[0], gbuf.shape[0], err2,
+             time.perf_counter() - t0))
+
+    # -- 6. K2 timings --
+    def k2():
+        K2.full_scan(db, dl, FRAMES, MAX_DATA)
+
+    def k2_plain():
+        K2.full_scan_plain(db, dl, FRAMES, MAX_DATA)
+
+    k2()
+    k2_plain()
+    p1 = _time_ms(torch, k2_plain, 3)
+    k_a = _time_ms(torch, k2, 20)
+    k_b = _time_ms(torch, k2, 20)
+    p2 = _time_ms(torch, k2_plain, 3)
+    k2_ms, k2_plain_ms = (k_a + k_b) / 2, (p1 + p2) / 2
+    bound2_ms = bound2_b / HBM_BYTES_PER_S * 1e3
+    del db, dl, da, dal, dg, dgl
+    # the bucket the ingest stages all 1,025 whole streams in
+    ding = FleetIngest(device='cuda', body_mode='device', max_frames=FRAMES)
+    Bp, Lb = ding._bucket(len(streams), max(len(x) for x in streams))
+    ibuf = np.zeros((Bp, Lb), np.uint8)
+    ilens = np.zeros((Bp,), np.int32)
+    for i, x in enumerate(streams):
+        ibuf[i, :len(x)] = np.frombuffer(x, np.uint8)
+        ilens[i] = len(x)
+    ib, il = P.batch_to_device(ibuf, ilens, dev)
+
+    def dstep():
+        ding._step(ib, il)
+
+    def k2_bucket():
+        K2.full_scan(ib, il, FRAMES, MAX_DATA)
+
+    # the step's parts: the decode (K2, its unpack, the reductions), the
+    # fixed-layout and list body parses, the pack, each timed alone;
+    # then the two pinned readbacks
+    st_b, gd_b = P.wire_full_decode(ib, il, FRAMES, MAX_DATA)
+    bd_b = R.parse_reply_bodies(ib, st_b.starts, st_b.sizes,
+                                max_data=MAX_DATA, max_path=ding.max_path,
+                                getdata=gd_b)
+    lb_b = R.parse_list_bodies(ib, st_b.starts, st_b.sizes)
+
+    def decode():
+        P.wire_full_decode(ib, il, FRAMES, MAX_DATA)
+
+    def replies():
+        R.parse_reply_bodies(ib, st_b.starts, st_b.sizes, max_data=MAX_DATA,
+                             max_path=ding.max_path, getdata=gd_b)
+
+    def lists():
+        R.parse_list_bodies(ib, st_b.starts, st_b.sizes)
+
+    def pack():
+        ding._pack_bodies(st_b, bd_b, lb_b)
+
+    ints, byts = ding._step(ib, il)
+    h_ints = torch.empty(ints.shape, dtype=ints.dtype, pin_memory=True)
+    h_byts = torch.empty(byts.shape, dtype=byts.dtype, pin_memory=True)
+
+    def readback():
+        h_ints.copy_(ints, non_blocking=True)
+        h_byts.copy_(byts, non_blocking=True)
+
+    for fn in (dstep, decode, replies, lists, pack, readback):
+        fn()
+    dstep_ms = _time_ms(torch, dstep, 5)
+    k2b_ms = _time_ms(torch, k2_bucket, 20)
+    decode_ms = _time_ms(torch, decode, 10)
+    replies_ms = _time_ms(torch, replies, 5)
+    lists_ms = _time_ms(torch, lists, 5)
+    pack_ms = _time_ms(torch, pack, 5)
+    rb_ms = _time_ms(torch, readback, 5)
+    dstep_ms = (dstep_ms + _time_ms(torch, dstep, 5)) / 2
+    n_ints, n_byts = ints.shape[1], byts[0].numel()
+    rb_mb = (ints.numel() * 4 + byts.numel()) / 1e6
+    del ib, il, ding, ints, byts, h_ints, h_byts, st_b, gd_b, bd_b, lb_b
+    _log('# phase 6 on %s: K2 %.4f ms (turns %.4f %.4f), plain %.4f ms '
+         '(turns %.4f %.4f), K2 bound %.4f ms (%d bytes at 3.35 TB/s) at '
+         '%d x %d, max_data %d; at the ingest bucket %d x %d: device-body '
+         'step (K2 + torch bodies + pack) %.4f ms: decode (K2, unpack, '
+         'reductions) %.4f ms of which K2 %.4f ms, parse_reply_bodies '
+         '%.4f ms, parse_list_bodies %.4f ms, pack %.4f ms; '
+         'packed %d int32 + %d uint8 per row, their readback (%.1f MB) '
+         '%.4f ms (%.1f GB/s)' % (
+             smi, k2_ms, k_a, k_b, k2_plain_ms, p1, p2, bound2_ms, bound2_b,
+             B_CORPUS, FRAMES, MAX_DATA, Bp, Lb, dstep_ms, decode_ms,
+             k2b_ms, replies_ms, lists_ms, pack_ms, n_ints, n_byts,
+             rb_mb, rb_ms, rb_mb / rb_ms))
+
+    # -- 7. the device-body path: live fleet ingest --
+    conns = [StandIn(_codec(PacketCodec, m)) for m in xmaps]
+    torch.cuda.synchronize()
+    ing = FleetIngest(device='cuda', body_mode='device', bypass_bytes=0,
+                      warm='block', max_frames=FRAMES)
+    dstep_s: list = []
+    _timed(ing, dstep_s)
+    W.launches = K2.launches = 0
+    t0 = time.perf_counter()
+    asyncio.run(_serve(ing, conns, chunks))
+    dwall = time.perf_counter() - t0
+    k2_launches, k1_dev = K2.launches, W.launches
+    if not (ing.ticks > 0 and k2_launches == ing.ticks and k1_dev == 0
+            and ing.ticks_scalar == 0 and ing.ticks_warming == 0):
+        raise AssertionError('device-body ticks %d (scalar %d, warming %d) '
+                             'vs K2 launches %d, K1 launches %d' % (
+                                 ing.ticks, ing.ticks_scalar,
+                                 ing.ticks_warming, k2_launches, k1_dev))
+    if ing.body_fallbacks:
+        raise AssertionError('%d bodies fell back to the scalar reader'
+                             % ing.body_fallbacks)
+    dn_pkts = _check_fleet(conns, wants)
+    dtick_ms = ing.tick_hist.sum() / max(ing.tick_hist.count(), 1)
+    _log('# phase 7 on %s: %d connections, %d packets equal to the scalar '
+         'codec, bad prefix -> %s, body_fallbacks %d; %d device ticks = %d '
+         'K2 launches, %d K1 launches; mean tick %.3f ms, of which the '
+         'device half (stage, copy, K2, torch bodies, pack, two readbacks) '
+         '%.3f ms per tick: %s; phase wall %.2f s'
+         % (smi, len(conns), dn_pkts, getattr(conns[-1].err, 'code', None),
+            ing.body_fallbacks, ing.ticks, k2_launches, k1_dev, dtick_ms,
+            sum(dstep_s) * 1e3 / len(dstep_s),
+            ' '.join('%.3f' % (x * 1e3) for x in dstep_s), dwall))
 
     # -- report --
     kernels = [{
@@ -322,6 +527,19 @@ def main() -> int:
         'ms': k_ms,
         'plain_ms': plain_ms,
         'bound_ms': bound_ms,
+        'bound_by': 'bytes',
+        'library_ms': None,
+    }, {
+        'name': 'K2 full_scan (K1 + GET_DATA body words)',
+        'route': 'cuda',
+        'source': 'zkstream_tpu_torch/csrc/wire_scan.cu',
+        'replaces': K2.REPLACES,
+        'launches': k2_launches,
+        'max_abs_err': err2,
+        'equal': err2 == 0,
+        'ms': k2_ms,
+        'plain_ms': k2_plain_ms,
+        'bound_ms': bound2_ms,
         'bound_by': 'bytes',
         'library_ms': None,
     }]

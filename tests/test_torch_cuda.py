@@ -1,14 +1,16 @@
-"""Kernel K1 against its plain version on a CUDA card (no JAX here, so
-the file also runs where only the port is installed:
+"""Kernels K1 and K2 against their plain versions on a CUDA card, and
+the device-body tick on the card against the same tick on the CPU (no
+JAX here, so the file also runs where only the port is installed:
 ``python -m pytest --noconftest tests/test_torch_cuda.py``).  Every
 test is marked ``cuda`` and skips without a card; the decision is made
-in a fixture."""
+in a fixture.  Tolerance 0: every plane is an integer or bool plane."""
 
 import numpy as np
 import pytest
 import torch
 
 from zkstream_tpu_torch import corpus
+from zkstream_tpu_torch.ops import full_scan as TK2
 from zkstream_tpu_torch.ops import pipeline as TP
 from zkstream_tpu_torch.ops import wire_scan as TW
 
@@ -32,6 +34,12 @@ _INPUTS = {
     'random_bytes': _random_bytes,
     'corpus': _corpus_small,
 }
+
+#: K2's inputs: K1's plus GET_DATA-layout fleets at both widths
+_K2_INPUTS = dict(_INPUTS, **{
+    'getdata16': lambda: corpus.getdata_fleet(0, 13, 512, 16),
+    'getdata256': lambda: corpus.getdata_fleet(7, 64, 4096, 256),
+})
 
 
 @pytest.fixture
@@ -66,3 +74,62 @@ def test_auto_step_takes_k1_on_card(cuda_device):
     want = TP.wirestats_to_numpy(TP.wire_pipeline_step(db, dl, 8))
     for f in want:
         np.testing.assert_array_equal(want[f], got[f], err_msg=f)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('name', sorted(_K2_INPUTS))
+@pytest.mark.parametrize('max_data', [16, 256])
+def test_k2_matches_plain_on_card(cuda_device, name, max_data):
+    buf, lens = _K2_INPUTS[name]()
+    db, dl = TP.batch_to_device(buf, lens, cuda_device)
+    before = TK2.launches, TW.launches
+    got = TK2.full_scan(db, dl, 16, max_data)
+    torch.cuda.synchronize()
+    assert (TK2.launches, TW.launches) == (before[0] + 1, before[1])
+    want = TK2.full_scan_plain(db, dl, 16, max_data)
+    assert sorted(got) == sorted(want)
+    for k in want:
+        assert torch.equal(want[k], got[k]), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('name', ['getdata256', 'corpus', 'adversarial'])
+def test_full_decode_on_card_equals_cpu(cuda_device, name):
+    buf, lens = _K2_INPUTS[name]()
+    cpu = TP.wire_full_decode(*TP.batch_to_device(buf, lens, 'cpu'),
+                              max_frames=32, max_data=256)
+    card = TP.wire_full_decode(*TP.batch_to_device(buf, lens, cuda_device),
+                               max_frames=32, max_data=256)
+
+    def flat(t):
+        for x in t:
+            if hasattr(x, '_fields'):
+                yield from flat(x)
+            else:
+                yield x
+    for a, b in zip(flat(cpu), flat(card)):
+        assert torch.equal(a, b.cpu())
+
+
+@pytest.mark.cuda
+def test_device_body_tick_launches_k2_only(cuda_device):
+    """A CUDA device-body tick is one K2 launch (no K1) and packs what
+    the same tick packs on the CPU."""
+    from zkstream_tpu_torch.io.ingest import FleetIngest
+
+    buf, _lens, _slots, _maps = corpus.fleet(B=12, seed=2, frames=16)
+    rows = [bytearray(r.tobytes()) for r in buf]
+    rows += [bytearray(r[:n].tobytes()) for r, n in
+             zip(*corpus.getdata_fleet(4, 4, 1024, 64))]
+    kw = dict(body_mode='device', max_frames=16, max_data=64,
+              max_path=32, max_children=6, max_name=12)
+    key = (16, 4096)
+    card = FleetIngest(device='cuda', **kw)
+    before = TK2.launches, TW.launches
+    got = card._run_step(card._warm_bucket(key),
+                         [(None, r) for r in rows])
+    assert (TK2.launches, TW.launches) == (before[0] + 1, before[1])
+    cpu = FleetIngest(device='cpu', **kw)
+    want = cpu._run_step(cpu._warm_bucket(key), [(None, r) for r in rows])
+    for a, b in zip(want, got):
+        np.testing.assert_array_equal(a, b)

@@ -27,6 +27,8 @@ def test_every_module_is_found():
     mods = _modules()
     for name in ('zkstream_tpu_torch.io.ingest',
                  'zkstream_tpu_torch.ops.wire_scan',
+                 'zkstream_tpu_torch.ops.full_scan',
+                 'zkstream_tpu_torch.ops.replies',
                  'zkstream_tpu_torch.protocol.framing',
                  'zkstream_tpu_torch.corpus', 'zkstream_tpu_torch.entry'):
         assert name in mods
@@ -59,7 +61,8 @@ def test_imports_load_no_jax(script):
     assert res.stdout.strip().endswith('ok')
 
 
-@pytest.mark.parametrize('what', ['entry', 'ingest', 'batch'])
+@pytest.mark.parametrize('what', ['entry', 'ingest', 'ingest_device',
+                                  'batch'])
 def test_default_device_raises_without_card(what):
     if torch.cuda.is_available():
         pytest.skip('a card is present: the default device is valid')
@@ -70,6 +73,7 @@ def test_default_device_raises_without_card(what):
     import numpy as np
 
     call = {'entry': entry, 'ingest': FleetIngest,
+            'ingest_device': lambda: FleetIngest(body_mode='device'),
             'batch': lambda: batch_to_device(
                 np.zeros((2, 8), np.uint8), np.zeros((2,), np.int32))}
     with pytest.raises(RuntimeError, match='CUDA'):

@@ -232,3 +232,52 @@ def adversarial(seed: int = 0, B: int = 37, L: int = 512):
     lens[len(rows) + 1] = -5                               # lens < 0
     lens[len(rows) + 2] = 3                                # < a prefix
     return buf, lens
+
+
+def getdata_fleet(seed: int = 0, B: int = 13, L: int = 512,
+                  max_data: int = 16):
+    """Streams of GET_DATA-layout frames for holding K2 against its plain
+    version: buffer(data) then Stat, with adversarial shapes mixed in —
+    empty data as length -1, a truncated Stat, a buffer length that
+    overruns the frame, one near INT32_MAX, and header-only frames.
+    Row by row the batch the JAX package's Pallas tests build from
+    ``random.Random(seed)``.  Returns ``(buf uint8 [B, L], lens int32
+    [B])``."""
+    import random
+    import struct
+
+    rng = random.Random(seed)
+
+    def frame(xid, zxid, err, body):
+        hdr = struct.pack('>iqi', xid, zxid, err)
+        return struct.pack('>i', len(hdr) + len(body)) + hdr + body
+
+    buf = np.zeros((B, L), np.uint8)
+    lens = np.zeros((B,), np.int32)
+    for i in range(B):
+        s = b''
+        for _ in range(rng.randrange(0, 5)):
+            kind = rng.random()
+            if kind < 0.5:      # well-formed GET_DATA reply
+                dlen = rng.choice([0, 1, 3, max_data - 1, max_data,
+                                   max_data + 5])
+                data = bytes(rng.randrange(256) for _ in range(dlen))
+                body = struct.pack('>i', dlen) + data + bytes(
+                    rng.randrange(256) for _ in range(68))
+            elif kind < 0.6:    # empty buffer as length -1
+                body = struct.pack('>i', -1) + bytes(
+                    rng.randrange(256) for _ in range(68))
+            elif kind < 0.7:    # Stat truncated
+                body = struct.pack('>i', 2) + b'xy' + b'\x01' * 30
+            elif kind < 0.75:   # buffer length overruns the frame
+                body = struct.pack('>i', 4096) + b'zz'
+            elif kind < 0.85:   # wire length near INT32_MAX
+                body = struct.pack('>i', 0x7FFFFFF4) + b'zz' + b'\x00' * 70
+            else:               # header-only (PING-like)
+                body = b''
+            s += frame(rng.randrange(1, 1000), rng.randrange(1 << 40), 0,
+                       body)
+        s = s[:L]
+        buf[i, :len(s)] = np.frombuffer(s, np.uint8)
+        lens[i] = len(s)
+    return buf, lens

@@ -6,11 +6,25 @@ The reference drains every connection with its own scalar loop — bytes
 replaces that per-socket drain at fleet scale: N live connections
 append their received bytes to per-connection accumulators, and a
 per-event-loop-tick batcher packs them into one ``uint8 [Bp, L]``
-tensor, runs :func:`~zkstream_tpu_torch.ops.pipeline.wire_pipeline_step_auto`
-(kernel K1 on a CUDA device) in one launch sequence, reads back one
-packed int32 array, and routes the results on the host — reply packets
-to each connection through its ``ingestDeliver`` event, with
-observable semantics identical to the scalar drain.
+tensor, decodes it in one launch sequence, reads back the packed
+result, and routes it on the host — reply packets to each connection
+through its ``ingestDeliver`` event, with observable semantics
+identical to the scalar drain.
+
+Two body modes:
+
+- ``'host'``: the tick is
+  :func:`~zkstream_tpu_torch.ops.pipeline.wire_pipeline_step_auto`
+  (kernel K1 on a CUDA device) and reads back one packed int32 array;
+  bodies come from the scalar readers at the device-located offsets.
+- ``'device'``: the tick is
+  :func:`~zkstream_tpu_torch.ops.pipeline.wire_full_decode` (kernel K2
+  on a CUDA device, K1 not launched), then the torch body parse
+  (``parse_reply_bodies`` with K2's GET_DATA planes, and
+  ``parse_list_bodies``); it reads back one packed int32 array and one
+  packed uint8 array, and packets assemble from those planes.  A frame
+  whose body does not fit the static widths (or is malformed) takes
+  the scalar reader, counted in ``body_fallbacks``.
 
 This is the port of ``zkstream_tpu.io.ingest.FleetIngest``: the host
 logic (registry, the direct/batch regimes, the frame-guard EMA, fault
@@ -19,13 +33,13 @@ hooks, routing and packet assembly) is the reference's.  What differs:
 - ``device=`` (default ``'cuda'``) names where ticks run; with no card
   the constructor raises.  There is no placement probe that moves
   ticks to the host CPU.
-- A shape bucket's warm-up builds the K1 library (first use) and
+- A shape bucket's warm-up builds the kernel library (first use) and
   allocates the bucket's pinned staging tensor, device input tensors
-  and pinned readback tensor — the counterpart of the reference's
+  and pinned readback tensors — the counterpart of the reference's
   per-bucket XLA compile.  A warm failure raises on the next tick; it
   never latches the bucket onto the scalar drain.
-- ``body_mode='host'`` only: bodies come from the scalar readers at
-  the device-located offsets.
+- The C-extension body decoder (``codec.ext``) is not ported: host
+  mode always assembles packets in Python.
 
 A connection needs three things: ``codec`` (a port ``PacketCodec``),
 ``is_in_state('connected')`` and ``emit('ingestDeliver', pkts, err)``.
@@ -42,10 +56,17 @@ import types
 import numpy as np
 import torch
 
-from ..protocol.consts import REPLY_HDR, SPECIAL_XIDS, err_name
+from ..protocol.consts import (
+    REPLY_HDR,
+    SPECIAL_XIDS,
+    KeeperState,
+    NotificationType,
+    Perm,
+    err_name,
+)
 from ..protocol.errors import ZKProtocolError
 from ..protocol.jute import JuteReader
-from ..protocol.records import _EMPTY_RESPONSES, _RESP_READERS
+from ..protocol.records import _EMPTY_RESPONSES, _RESP_READERS, ACL, Id
 from ..utils.logging import Logger
 from ..utils.metrics import Histogram
 
@@ -82,9 +103,11 @@ def _guard_warm_exit(thread: threading.Thread, q: queue.Queue) -> None:
 class _Bucket:
     """The tensors of one ``(Bp, L)`` shape bucket, reused every tick:
     a host staging batch (pinned for a CUDA device), the device inputs
-    and a host readback of the packed result."""
+    and host readbacks of the packed result: ``n_ints`` int32 columns
+    and, in device-body mode, ``[F, n_bytes]`` uint8 planes per row."""
 
-    def __init__(self, Bp: int, L: int, F: int, device: torch.device):
+    def __init__(self, Bp: int, L: int, F: int, device: torch.device,
+                 n_ints: int, n_bytes: int = 0):
         cuda = device.type == 'cuda'
         self.stage_buf = torch.empty((Bp, L), dtype=torch.uint8,
                                      pin_memory=cuda)
@@ -98,11 +121,14 @@ class _Bucket:
                                        device=device)
             self.dev_lens = torch.zeros((Bp,), dtype=torch.int32,
                                         device=device)
-            self.readback = torch.empty((Bp, 3 + 6 * F), dtype=torch.int32,
+            self.readback = torch.empty((Bp, n_ints), dtype=torch.int32,
                                         pin_memory=True)
+            self.readback_bytes = (
+                torch.empty((Bp, F, n_bytes), dtype=torch.uint8,
+                            pin_memory=True) if n_bytes else None)
         else:
             self.dev_buf, self.dev_lens = self.stage_buf, self.stage_lens
-            self.readback = None
+            self.readback = self.readback_bytes = None
 
 
 class FleetIngest:
@@ -113,7 +139,15 @@ class FleetIngest:
       max_frames: per-stream frame bound per tick; streams with more
         complete frames buffered are finished on follow-up ticks.
       body_mode: ``'host'`` (device framing/headers, scalar body
-        readers).  ``'device'`` is not ported yet.
+        readers) or ``'device'`` (tensor body parse with scalar
+        fallback).
+      max_data / max_path: static widths of the device GET_DATA payload
+        and CREATE/NOTIFICATION path planes (``body_mode='device'``
+        only; ``max_data`` a multiple of 4, as kernel K2 reads words);
+        larger fields fall back to the scalar reader.
+      max_children / max_name / max_acls / max_scheme / max_id: bounds
+        of the device children and ACL list parse; longer lists fall
+        back to the scalar reader per frame.
       min_len: smallest padded stream length, to bound bucket churn.
       device: where ticks run (``'cuda'`` default, or ``'cpu'`` for the
         plain version).
@@ -140,6 +174,10 @@ class FleetIngest:
                    'zxid_hi', 'zxid_lo')
 
     def __init__(self, max_frames: int = 32, body_mode: str = 'host',
+                 max_data: int = 256, max_path: int = 256,
+                 max_children: int = 16, max_name: int = 64,
+                 max_acls: int = 4, max_scheme: int = 16,
+                 max_id: int = 64,
                  min_len: int = 256, device='cuda',
                  bypass_bytes: int = 16384,
                  warm: str = 'background',
@@ -147,19 +185,25 @@ class FleetIngest:
                  log: Logger | None = None):
         from ..ops.pipeline import resolve_device
 
-        if body_mode == 'device':
-            raise NotImplementedError(
-                "body_mode='device' needs the device body parse and "
-                'kernel K2, which a later slice of the port brings')
-        if body_mode != 'host':
-            raise ValueError('body_mode must be host, got %r'
+        if body_mode not in ('host', 'device'):
+            raise ValueError('body_mode must be host or device, got %r'
                              % (body_mode,))
+        if body_mode == 'device' and max_data % 4:
+            raise ValueError('max_data must be a multiple of 4 (kernel '
+                             'K2 reads whole words), got %d' % (max_data,))
         if warm not in ('background', 'block'):
             raise ValueError('warm must be background or block, got %r'
                              % (warm,))
         self.device = resolve_device(device)
         self.max_frames = max_frames
         self.body_mode = body_mode
+        self.max_data = max_data
+        self.max_path = max_path
+        self.max_children = max_children
+        self.max_name = max_name
+        self.max_acls = max_acls
+        self.max_scheme = max_scheme
+        self.max_id = max_id
         self.min_len = min_len
         self.warm = warm
         self.bypass_bytes = bypass_bytes
@@ -189,6 +233,9 @@ class FleetIngest:
         self._window_bytes = 0
         self._ema_bytes: float | None = None
         self._frames_mark = 0
+        #: device-body mode: frames whose body needed the scalar
+        #: reader (oversized/list-overflow/malformed)
+        self.body_fallbacks = 0
         #: (Bp, L) -> _Bucket, or the exception its warm-up raised
         self._exec: dict = {}
         self._warm_events: dict = {}
@@ -279,13 +326,19 @@ class FleetIngest:
         return (Bp, L)
 
     def _warm_bucket(self, key: tuple) -> _Bucket:
-        """Build K1 (first use, on a CUDA device) and allocate one
-        bucket's tensors."""
+        """Build the tick's kernel (first use, on a CUDA device) and
+        allocate one bucket's tensors."""
         Bp, L = key
+        device_bodies = self.body_mode == 'device'
         if self.device.type == 'cuda':
-            from ..ops import wire_scan
-            wire_scan.load()
-        return _Bucket(Bp, L, self.max_frames, self.device)
+            from ..ops import full_scan, wire_scan
+            (full_scan if device_bodies else wire_scan).load()
+        n_planes = len(self._HDR_PLANES) + (
+            self._n_body_planes() if device_bodies else 0)
+        n_bytes = (sum(w for _n, w in self._bytes_schema())
+                   if device_bodies else 0)
+        return _Bucket(Bp, L, self.max_frames, self.device,
+                       3 + n_planes * self.max_frames, n_bytes)
 
     def _try_warm(self, key: tuple):
         """Warm ``key``; a failure is returned (and raised by the tick
@@ -360,17 +413,149 @@ class FleetIngest:
             return
         await self._start_warm(key).wait()
 
-    def _unpack(self, ints):
-        """Host-side stat views of the packed int32 array (numpy views,
-        no copies)."""
+    # -- the packed tick output --
+
+    def _body_schema(self):
+        """Declarative layout of the device-body planes inside the
+        packed int32 tick output — one source of truth for the pack
+        (:meth:`_pack_bodies`) and the host-side unpack.  Entry kinds:
+
+        - ``('plane', name)``: one int32 [B, F] plane;
+        - ``('multi', name, K)``: an int32 [B, F, K] tensor as K planes;
+        - ``('stat', name)``: a StatPlanes (one plane per field).
+        """
+        K, A = self.max_children, self.max_acls
+        return (
+            ('stat', 'stat0'), ('stat', 'stat_after_data'),
+            ('plane', 'data_len'), ('plane', 'str0_len'),
+            ('plane', 'ntype'), ('plane', 'nstate'),
+            ('plane', 'npath_len'), ('plane', 'data_ok'),
+            ('plane', 'str0_ok'), ('plane', 'npath_ok'),
+            ('plane', 'ch_count'), ('plane', 'ch_ok'),
+            ('multi', 'ch_len', K),
+            ('stat', 'stat_after_children'),
+            ('plane', 'acl_count'), ('plane', 'acl_ok'),
+            ('multi', 'acl_perms', A),
+            ('multi', 'acl_scheme_len', A),
+            ('multi', 'acl_id_len', A),
+            ('stat', 'stat_after_acl'),
+        )
+
+    def _bytes_schema(self):
+        """Widths of the uint8 [B, F, w] segments concatenated into the
+        packed byte planes (4-d sources flatten their trailing axes)."""
+        return (
+            ('data', self.max_data),
+            ('str0', self.max_path),
+            ('npath', self.max_path),
+            ('ch_bytes', self.max_children * self.max_name),
+            ('acl_scheme', self.max_acls * self.max_scheme),
+            ('acl_id', self.max_acls * self.max_id),
+        )
+
+    def _n_body_planes(self) -> int:
+        from ..ops.replies import StatPlanes
+
+        width = {'plane': lambda e: 1, 'multi': lambda e: e[2],
+                 'stat': lambda e: len(StatPlanes._fields)}
+        return sum(width[e[0]](e) for e in self._body_schema())
+
+    def _step(self, buf, lens):
+        """The tick computation on ``buf``/``lens`` (device tensors):
+        decode and pack into ``(ints [Bp, 3 + K*F], bytes [Bp, F, W])``,
+        ``bytes`` None in host-body mode."""
+        from ..ops.pipeline import wire_full_decode, wire_pipeline_step_auto
+        from ..ops.replies import parse_list_bodies, parse_reply_bodies
+
+        F = self.max_frames
+        if self.body_mode == 'host':
+            st = wire_pipeline_step_auto(buf, lens, max_frames=F)
+            return self._pack_ints(st, ()), None
+        st, gd = wire_full_decode(buf, lens, max_frames=F,
+                                  max_data=self.max_data)
+        bd = parse_reply_bodies(buf, st.starts, st.sizes,
+                                max_data=self.max_data,
+                                max_path=self.max_path, getdata=gd)
+        lb = parse_list_bodies(
+            buf, st.starts, st.sizes,
+            max_children=self.max_children, max_name=self.max_name,
+            max_acls=self.max_acls, max_scheme=self.max_scheme,
+            max_id=self.max_id)
+        return self._pack_bodies(st, bd, lb)
+
+    def _pack_bodies(self, st, bd, lb):
+        """Pack a device-body tick's ``WireStats``, ``ReplyBodies`` and
+        ``ListBodies`` into ``(ints, bytes)`` in the schema's layout."""
+        from ..ops.replies import StatPlanes
+
+        F = self.max_frames
+
+        def src(name):
+            v = getattr(bd, name, None)
+            return v if v is not None else getattr(lb, name)
+
+        extra = []
+        for ent in self._body_schema():
+            if ent[0] == 'plane':
+                extra.append(src(ent[1]).to(torch.int32))
+            elif ent[0] == 'multi':
+                t = src(ent[1]).to(torch.int32)
+                extra += [t[:, :, k] for k in range(ent[2])]
+            else:
+                sp = src(ent[1])
+                extra += [getattr(sp, f).to(torch.int32)
+                          for f in StatPlanes._fields]
+        B = st.starts.shape[0]
+        byts = torch.cat([src(name).reshape(B, F, -1)
+                          for name, _w in self._bytes_schema()], dim=2)
+        return self._pack_ints(st, extra), byts
+
+    def _pack_ints(self, st, extra):
+        head = torch.stack([st.n_frames, st.resid,
+                            st.bad.to(torch.int32)], dim=1)      # [Bp, 3]
+        planes = [getattr(st, f) for f in self._HDR_PLANES] + list(extra)
+        flat = torch.stack(planes, dim=1)                        # [Bp, K, F]
+        return torch.cat([head, flat.reshape(head.shape[0], -1)], dim=1)
+
+    def _unpack(self, ints, byts):
+        """Host-side stat and body views of the packed arrays (numpy
+        views, no copies), walking the schema the pack wrote."""
+        from ..ops.replies import StatPlanes
+
         B = ints.shape[0]
         F = self.max_frames
         head, flat = ints[:, :3], ints[:, 3:].reshape(B, -1, F)
         st = types.SimpleNamespace(n_frames=head[:, 0],
                                    resid=head[:, 1], bad=head[:, 2])
-        for k, name in enumerate(self._HDR_PLANES):
+        k = 0
+        for name in self._HDR_PLANES:
             setattr(st, name, flat[:, k])
-        return st
+            k += 1
+        if byts is None:
+            return st, None
+
+        bd = types.SimpleNamespace()
+        for ent in self._body_schema():
+            if ent[0] == 'plane':
+                setattr(bd, ent[1], flat[:, k])
+                k += 1
+            elif ent[0] == 'multi':
+                K = ent[2]
+                # K consecutive planes -> a [B, F, K] view
+                setattr(bd, ent[1], np.moveaxis(flat[:, k:k + K], 1, 2))
+                k += K
+            else:
+                vals = {}
+                for f in StatPlanes._fields:
+                    vals[f] = flat[:, k]
+                    k += 1
+                vals['valid'] = vals['valid'].astype(bool)
+                setattr(bd, ent[1], StatPlanes(**vals))
+        off = 0
+        for name, w in self._bytes_schema():
+            setattr(bd, name, byts[:, :, off:off + w])
+            off += w
+        return st, bd
 
     def _note_frames(self, n: int) -> None:
         """Feed the fragmentation EMA with one tick's routed frames."""
@@ -535,23 +720,27 @@ class FleetIngest:
             raise RuntimeError('tick bucket %r failed to warm'
                                % (key,)) from bk
         self.ticks += 1
-        st = self._unpack(self._run_step(bk, active))
+        st, bd = self._unpack(*self._run_step(bk, active))
 
         retick = False
         for i, (conn, buf) in enumerate(active):
-            if self._route_stream(conn, buf, st, i):
+            if self._route_stream(conn, buf, st, bd, i):
                 retick = True
         if retick:
             self._schedule()
 
-    def _run_step(self, bk: _Bucket, active) -> np.ndarray:
-        """Stage the active streams, run the tick decode and read back
-        the packed int32 ``[Bp, 3 + 6F]`` result as numpy."""
-        from ..ops.pipeline import wire_pipeline_step_auto
-
+    def _run_step(self, bk: _Bucket, active):
+        """Stage the active streams, run the tick (:meth:`_step`) and
+        read back the packed ``(ints, bytes-or-None)`` as numpy: two
+        pinned readbacks and one synchronize on a CUDA device."""
         B = len(active)
-        # Bytes past a row's length are never read (every read is
-        # inside a complete frame), so the staging rows are not zeroed.
+        # Staging rows are reused without zeroing the bytes past a
+        # row's length.  The frame scan reads only inside complete
+        # frames; the body parse reads speculatively past frame ends,
+        # but every such read lands in an output its extent mask
+        # zeroes, so stale bytes never reach the packed result
+        # (tests/test_torch_ingest.py holds a short tick after a long
+        # one in the same bucket to the zero-filled reference).
         lens = bk.lens_np
         for i, (_conn, buf) in enumerate(active):
             n = len(buf)
@@ -562,21 +751,17 @@ class FleetIngest:
         if cuda:
             bk.dev_buf[:B].copy_(bk.stage_buf[:B], non_blocking=True)
             bk.dev_lens.copy_(bk.stage_lens, non_blocking=True)
-        st = wire_pipeline_step_auto(bk.dev_buf, bk.dev_lens,
-                                     max_frames=self.max_frames)
-        head = torch.stack([st.n_frames, st.resid,
-                            st.bad.to(torch.int32)], dim=1)      # [Bp, 3]
-        planes = torch.stack([getattr(st, f) for f in self._HDR_PLANES],
-                             dim=1)                              # [Bp, 6, F]
-        packed = torch.cat([head, planes.reshape(head.shape[0], -1)],
-                           dim=1)
+        ints, byts = self._step(bk.dev_buf, bk.dev_lens)
         if not cuda:
-            return packed.numpy()
-        bk.readback.copy_(packed, non_blocking=True)
+            return ints.numpy(), None if byts is None else byts.numpy()
+        bk.readback.copy_(ints, non_blocking=True)
+        if byts is not None:
+            bk.readback_bytes.copy_(byts, non_blocking=True)
         torch.cuda.current_stream(self.device).synchronize()
-        return bk.readback.numpy()
+        return (bk.readback.numpy(),
+                None if byts is None else bk.readback_bytes.numpy())
 
-    def _route_stream(self, conn, buf, st, i: int) -> bool:
+    def _route_stream(self, conn, buf, st, bd, i: int) -> bool:
         """Deliver stream ``i``'s decoded tick results to its
         connection.  Returns True when more complete frames may still
         be buffered (the per-stream frame bound was hit)."""
@@ -591,7 +776,7 @@ class FleetIngest:
             # with the pre-error packets attached.
             self._deliver_fallback(conn, buf)
             return False
-        pkts, err = self._assemble_stream(conn, buf, st, i, n)
+        pkts, err = self._assemble_stream(conn, buf, st, bd, i, n)
         resid = int(st.resid[i])
         if resid:
             del buf[:resid]
@@ -628,7 +813,7 @@ class FleetIngest:
 
     # -- host packet assembly --
 
-    def _assemble_stream(self, conn, buf, st, i: int, n: int):
+    def _assemble_stream(self, conn, buf, st, bd, i: int, n: int):
         """Build the packet dicts for stream ``i``'s ``n`` frames.
         Returns (packets, err); a decode failure mid-stream keeps the
         packets decoded before it, like PacketCodec.decode."""
@@ -661,7 +846,7 @@ class FleetIngest:
             }
             if pkt['err'] == 'OK' and opcode not in _EMPTY_RESPONSES:
                 try:
-                    self._read_body(pkt, buf, st, i, f)
+                    self._read_body(pkt, buf, st, bd, i, f)
                 except ZKProtocolError as e:
                     return pkts, e
                 except Exception as e:
@@ -673,10 +858,15 @@ class FleetIngest:
             pkts.append(pkt)
         return pkts, None
 
-    def _read_body(self, pkt, buf, st, i: int, f: int) -> None:
-        """Fill ``pkt`` with its opcode-specific body: the scalar reader
+    def _read_body(self, pkt, buf, st, bd, i: int, f: int) -> None:
+        """Fill ``pkt`` with its opcode-specific body: from the device
+        body planes where they hold it, else the scalar reader
         positioned at the device-located body offset."""
         opcode = pkt['opcode']
+        if bd is not None:
+            if self._read_body_device(pkt, bd, i, f):
+                return
+            self.body_fallbacks += 1
         start = int(st.starts[i, f])
         size = int(st.sizes[i, f])
         r = JuteReader(bytes(buf[start + REPLY_HDR:start + size]))
@@ -684,3 +874,75 @@ class FleetIngest:
         if reader is None:
             raise ValueError('unsupported reply opcode %r' % (opcode,))
         reader(r, pkt)
+
+    def _read_body_device(self, pkt, bd, i: int, f: int) -> bool:
+        """Assemble the body from the tensor planes; False = this frame
+        needs the scalar fallback (list-shaped beyond the bounds,
+        oversized, malformed)."""
+        from ..ops.replies import stat_from_planes
+
+        opcode = pkt['opcode']
+        if opcode in ('EXISTS', 'SET_DATA'):
+            if not bool(bd.stat0.valid[i, f]):
+                return False  # truncated: scalar reader raises exactly
+            pkt['stat'] = stat_from_planes(bd.stat0, i, f)
+            return True
+        if opcode == 'GET_DATA':
+            dlen = int(bd.data_len[i, f])
+            if dlen > self.max_data or not bool(bd.data_ok[i, f]) or \
+                    not bool(bd.stat_after_data.valid[i, f]):
+                return False
+            pkt['data'] = bytes(bd.data[i, f, :max(dlen, 0)])
+            pkt['stat'] = stat_from_planes(bd.stat_after_data, i, f)
+            return True
+        if opcode == 'CREATE':
+            slen = int(bd.str0_len[i, f])
+            # not-ok = the length field points past the frame: fall
+            # back so the scalar reader raises BAD_DECODE, exactly as
+            # the scalar drain would
+            if slen > self.max_path or not bool(bd.str0_ok[i, f]):
+                return False
+            pkt['path'] = bytes(bd.str0[i, f, :max(slen, 0)]).decode()
+            return True
+        if opcode == 'NOTIFICATION':
+            plen = int(bd.npath_len[i, f])
+            if plen > self.max_path or not bool(bd.npath_ok[i, f]):
+                return False
+            pkt['type'] = NotificationType(int(bd.ntype[i, f])).name
+            pkt['state'] = KeeperState(int(bd.nstate[i, f])).name
+            pkt['path'] = bytes(bd.npath[i, f, :max(plen, 0)]).decode()
+            return True
+        if opcode in ('GET_CHILDREN', 'GET_CHILDREN2'):
+            if not bool(bd.ch_ok[i, f]):
+                return False  # oversized/malformed list: scalar reader
+            if opcode == 'GET_CHILDREN2':
+                if not bool(bd.stat_after_children.valid[i, f]):
+                    return False  # truncated Stat: scalar raises
+                pkt['stat'] = stat_from_planes(
+                    bd.stat_after_children, i, f)
+            cnt = int(bd.ch_count[i, f])
+            # plane contract: ch_ok => lens already clamped to [0, S]
+            lens = bd.ch_len[i, f, :cnt].tolist()
+            row, S = bd.ch_bytes[i, f], self.max_name
+            pkt['children'] = [
+                bytes(row[k * S:k * S + lens[k]]).decode()
+                for k in range(cnt)]
+            return True
+        if opcode == 'GET_ACL':
+            if not bool(bd.acl_ok[i, f]) or \
+                    not bool(bd.stat_after_acl.valid[i, f]):
+                return False
+            cnt = int(bd.acl_count[i, f])
+            perms = bd.acl_perms[i, f, :cnt].tolist()
+            slens = bd.acl_scheme_len[i, f, :cnt].tolist()
+            ilens = bd.acl_id_len[i, f, :cnt].tolist()
+            srow, SS = bd.acl_scheme[i, f], self.max_scheme
+            irow, SI = bd.acl_id[i, f], self.max_id
+            pkt['acl'] = [
+                ACL(Perm(perms[k]), Id(
+                    bytes(srow[k * SS:k * SS + slens[k]]).decode(),
+                    bytes(irow[k * SI:k * SI + ilens[k]]).decode()))
+                for k in range(cnt)]
+            pkt['stat'] = stat_from_planes(bd.stat_after_acl, i, f)
+            return True
+        return False

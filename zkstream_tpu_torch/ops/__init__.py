@@ -6,7 +6,11 @@
 - :mod:`headers` — reply-header parse and per-stream reductions;
 - :mod:`wire_scan` — kernel K1 (scan + header parse in one CUDA
   launch) and its plain version;
-- :mod:`pipeline` — the tick decode over a [B, L] batch.
+- :mod:`full_scan` — kernel K2 (K1's walk plus the GET_DATA body in
+  one CUDA launch) and its plain version;
+- :mod:`replies` — the reply-body parse (fixed layouts and lists);
+- :mod:`pipeline` — the tick decode over a [B, L] batch, with or
+  without the GET_DATA bodies.
 """
 
 from .bytesops import (  # noqa: F401
@@ -19,10 +23,22 @@ from .bytesops import (  # noqa: F401
 from .frame_scan import frame_cursor_scan  # noqa: F401
 from .headers import parse_reply_headers, stream_stats  # noqa: F401
 from .pipeline import (  # noqa: F401
+    GetDataBodies,
     WireStats,
     batch_to_device,
+    getdata_bodies,
+    wire_full_decode,
     wire_pipeline_step,
     wire_pipeline_step_auto,
     wire_pipeline_step_kernel,
     wirestats_to_numpy,
+)
+from .replies import (  # noqa: F401
+    ListBodies,
+    ReplyBodies,
+    StatPlanes,
+    parse_list_bodies,
+    parse_reply_bodies,
+    parse_stats,
+    stat_from_planes,
 )

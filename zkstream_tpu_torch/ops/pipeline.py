@@ -12,6 +12,10 @@ semantics cannot diverge: ``wire_pipeline_step`` (plain torch) and
 ``wire_pipeline_step_kernel`` (the scan + header parse in kernel K1,
 ops/wire_scan.py).  ``wire_pipeline_step_auto`` takes K1 for every
 CUDA tensor and the plain version for a CPU tensor.
+
+``wire_full_decode`` is the same step with the GET_DATA bodies fused
+in (kernel K2, ops/full_scan.py, on a CUDA tensor) and returns them as
+``GetDataBodies``; ``getdata_bodies`` is its reference semantics.
 """
 
 from __future__ import annotations
@@ -113,6 +117,80 @@ def wire_pipeline_step_auto(buf, lens, max_frames: int = 32) -> WireStats:
     if buf.device.type == 'cuda':
         return wire_pipeline_step_kernel(buf, lens, max_frames=max_frames)
     return wire_pipeline_step(buf, lens, max_frames=max_frames)
+
+
+class GetDataBodies(NamedTuple):
+    """The GET_DATA slice of :class:`.replies.ReplyBodies` —
+    field for field the planes ``parse_reply_bodies`` emits for that
+    layout."""
+
+    data_len: torch.Tensor     # int32 [B, F] raw jute length (0/-1 ok)
+    data: torch.Tensor         # uint8 [B, F, max_data] zero-padded
+    data_mask: torch.Tensor    # bool [B, F, max_data]
+    data_ok: torch.Tensor      # bool [B, F] field extent fit the frame
+    stat_after_data: 'object'  # replies.StatPlanes
+
+
+def getdata_bodies(buf, st: WireStats, max_data: int) -> GetDataBodies:
+    """The GET_DATA planes via the plain body parser — the reference
+    semantics :func:`wire_full_decode` must match."""
+    from . import replies as R
+
+    frame_ok, p, end = R._frame_extent(st.starts, st.sizes)
+    return GetDataBodies(*R._getdata_planes(buf, frame_ok, p, end,
+                                            max_data))
+
+
+def wire_full_decode(buf, lens, max_frames: int = 32,
+                     max_data: int = 16):
+    """The tick decode plus the GET_DATA bodies: kernel K2 (or its
+    plain version, for a CPU tensor) and the elementwise unpack of its
+    words.  Returns ``(WireStats, GetDataBodies)``, equal to
+    :func:`wire_pipeline_step` + :func:`getdata_bodies`."""
+    from ..protocol.consts import MAX_PACKET
+    from .full_scan import full_scan
+    from .replies import _STAT_FIELDS, StatPlanes
+
+    r = full_scan(buf, lens, max_frames, max_data)
+    st = _stats_from_scan(r)
+
+    frame_ok = (r['starts'] >= 0) & (r['sizes'] >= 16)
+    draw = r['dlen_raw']
+    # the kernel's clamp, before any extent arithmetic
+    nb = draw.clamp(0, MAX_PACKET + 1)
+    # the _ustring_at extent rule: p+4+n <= end, with p = start+16
+    data_ok = frame_ok & (20 + nb <= r['sizes'])
+    data_len = torch.where(data_ok, draw, 0)
+    n_ok = torch.where(data_ok, nb, 0)
+    # BE words -> bytes, masked to the field extent and, as
+    # slice_var_bytes masks them, to bytes inside the row
+    shifts = torch.tensor([24, 16, 8, 0], dtype=torch.int32,
+                          device=buf.device)
+    B, F = draw.shape
+    byts = ((r['data_words'][..., None] >> shifts) & 0xFF).reshape(
+        B, F, max_data)
+    pos = torch.arange(max_data, dtype=torch.int32, device=buf.device)
+    first = torch.where(data_ok, r['starts'] + 20, 0)
+    data_mask = (pos < n_ok[..., None]) & (first[..., None] + pos
+                                           < buf.shape[1])
+    data = torch.where(data_mask, byts, 0).to(torch.uint8)
+
+    stat_ok = frame_ok & (20 + nb + 68 <= r['sizes'])
+    sw = r['stat_words']
+    # one source of truth for the Stat layout: the kernel writes word
+    # rel//4 (+1 for the low half of 64-bit fields)
+    vals = {}
+    for name, rel, is_long in _STAT_FIELDS:
+        k = rel // 4
+        if is_long:
+            vals[name + '_hi'] = sw[:, :, k]
+            vals[name + '_lo'] = sw[:, :, k + 1]
+        else:
+            vals[name] = sw[:, :, k]
+    stat = StatPlanes(valid=stat_ok, **vals)
+    return st, GetDataBodies(data_len=data_len, data=data,
+                             data_mask=data_mask, data_ok=data_ok,
+                             stat_after_data=stat)
 
 
 def resolve_device(device) -> torch.device:

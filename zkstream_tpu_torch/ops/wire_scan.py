@@ -5,7 +5,9 @@ Replaces the TPU kernel ``zkstream_tpu/ops/pallas_scan.py::_kernel``
 ``zkstream_tpu_torch/csrc/wire_scan.cu``: one thread per stream row
 walks up to ``max_frames`` frames with byte loads from device memory
 and writes ``[B, F]`` planes directly (the TPU's ``[F, B]`` layout and
-its lane-roll "gathers" were Mosaic tiling artefacts).
+its lane-roll "gathers" were Mosaic tiling artefacts).  The same
+library holds kernel K2 (ops/full_scan.py), which shares K1's frame
+step; this module builds and loads it.
 
 What bounds it on an H100: memory.  It reads 20 bytes per frame found
 (the 4-byte length prefix and the 16-byte reply header) and 4 bytes of
@@ -59,14 +61,15 @@ def _nvcc() -> str:
             return os.path.join(cand, 'bin', 'nvcc')
     found = shutil.which('nvcc')
     if found is None:
-        raise RuntimeError('nvcc not found: K1 (%s) cannot be built'
+        raise RuntimeError('nvcc not found: %s cannot be built'
                            % (SOURCE.name,))
     return found
 
 
 def build() -> tuple[Path, str]:
-    """Compile ``csrc/wire_scan.cu`` for sm_90a into ``build/`` (once
-    per source content) and return ``(library path, ptxas report)``."""
+    """Compile ``csrc/wire_scan.cu`` (K1 and K2) for sm_90a into
+    ``build/`` (once per source content) and return ``(library path,
+    ptxas report)``."""
     src = SOURCE.read_bytes()
     tag = hashlib.sha256(src).hexdigest()[:16]
     BUILD_DIR.mkdir(parents=True, exist_ok=True)

@@ -9,17 +9,31 @@ Phases (any failure exits non-zero; nothing is caught):
 
 1. Build kernels K1 and K2 (one library from
    ``zkstream_tpu_torch/csrc/wire_scan.cu``) with nvcc for sm_90a into
-   ``build/`` and print ptxas's register/spill report of each.
+   ``build/`` and print ptxas's register/spill/shared-memory report of
+   each, each kernel's launch geometry at the bench shape, and the K2
+   blocks the card holds at once (its persistent grid).
 2. Hold K1 against its plain torch version on the card, exactly
    (integer planes, tolerance 0): the deployed-shaped corpus (16384
-   streams x 64 mixed-opcode frames, ~247 MiB, seed 42) and an
+   streams x 64 mixed-opcode frames, ~247 MiB, seed 42), an
    adversarial batch (bad prefixes, short frames, truncated tails,
-   empty and full rows, odd B, lens > L, lens < 0).
+   empty and full rows, odd B, lens > L, lens < 0) and the ring-edge
+   batch (``corpus.ring_fleet``: fields straddling K2's stage
+   boundaries, a frame longer than the ring, rows at every 16-byte
+   alignment, lens > L, lens < 0, lens = 0).  Both batches have more
+   than twice as many rows as K2 keeps warps resident, so in phase 5
+   every warp walks a second row after one that stopped early.
 3. The tick decode ``wire_pipeline_step_auto`` on the corpus (it must
    launch K1 and equal the plain step), ``entry()``, and the timings:
    K1 and the plain version by CUDA events in turns (plain, kernel,
-   kernel, plain), the host->device copy of the tick batch, and K1's
-   bound from the bytes it must move at 3.35 TB/s.
+   kernel, plain), the host->device copy of the tick batch, K1 at the
+   ingest's bucket shape (2048 x 16384), and K1's bound at both shapes
+   from the bytes it must move at 3.35 TB/s, with its share (bound /
+   time); then K1's latency floor, K1 on 256 rows whose batch was
+   evicted from L2.  A kernel's time (``ms``) is that of wrapper calls
+   back to back, host overhead included where it exceeds the kernel's
+   (the bucket); its device time (``device_ms``: the host queues the
+   launches behind a spin kernel, so its launch overhead is not
+   counted) is printed beside it.
 4. The main path: ``FleetIngest(device='cuda', body_mode='host',
    bypass_bytes=0, warm='block', max_frames=64)`` serves 1,024
    stand-in connections fed their corpus streams in three chunks cut
@@ -32,12 +46,15 @@ Phases (any failure exits non-zero; nothing is caught):
    B, so every data frame fits), the adversarial batch, and a
    GET_DATA-adversarial batch (``corpus.getdata_fleet``: -1 empty
    buffers, truncated Stats, lengths that overrun the frame or sit
-   near INT32_MAX, header-only frames).  ``wire_full_decode`` on the
-   corpus must equal ``wire_pipeline_step`` + ``getdata_bodies``.
-6. Timings: K2 and its plain version by CUDA events in turns at the
-   corpus shape, K2's bound at 3.35 TB/s, and at the ingest's bucket
-   shape the device-body tick step (K2 + the torch body parse + the
-   pack) with its parts, each timed alone: the decode, K2,
+   near INT32_MAX, header-only frames) and the ring-edge batch.
+   ``wire_full_decode`` on the corpus must equal
+   ``wire_pipeline_step`` + ``getdata_bodies``.
+6. Timings: K2 (wrapper calls and device time, as in phase 3) and its
+   plain version by CUDA events in turns at the corpus shape, K2's
+   bound at 3.35 TB/s and its share, K2 at the ingest's bucket shape
+   with its bound and share, and there the device-body tick step (K2
+   + the torch body parse + the pack) with its parts, each timed
+   alone: the decode, K2,
    ``parse_reply_bodies``, ``parse_list_bodies``, the pack, and the
    readback of the packed arrays.
 7. The device-body path: ``FleetIngest(device='cuda',
@@ -71,6 +88,13 @@ FRAMES = 64
 FLEET = 1024                   # live connections in the ingest phases
 SEED = 42
 MAX_DATA = 256                 # FleetIngest's default GET_DATA width
+# The ring-edge and adversarial batches: odd B, more than twice the warps
+# K2 keeps resident (4,224 on an H100 at these geometries), so every warp
+# walks a second row after one that stopped early; the ring's L % 16 == 4.
+RING_B, RING_L = 9001, 6004
+ADV_B, ADV_L = 9001, 512
+FLOOR_ROWS = 256               # K1's latency floor: eight warps' rows
+SPIN_CYCLES = 20_000_000       # _device_ms's spin, about 10 ms at 2 GHz
 
 
 def _log(msg: str) -> None:
@@ -88,6 +112,55 @@ def _time_ms(torch, fn, n: int) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / n
+
+
+def _device_ms(torch, fn, n: int, warm: bool = True) -> tuple:
+    """``(device ms, host ms)``: the mean device time of ``fn`` over
+    ``n`` back-to-back calls without the host's launch overhead, and the
+    mean host time of one call.  A spin kernel holds the stream while
+    the host queues all ``n`` calls, so the CUDA events around them see
+    the kernels run back to back, and the host clock around the queueing
+    sees the calls alone.  Where a wrapper's host time (allocations,
+    checks, the ctypes call) exceeds its kernel's, :func:`_time_ms`
+    counts the host time and this does not.  If the host took longer to
+    queue the calls than the spin lasted, the spin is doubled and the
+    timing taken again.  ``warm`` makes one untimed call first."""
+    if warm:
+        fn()
+    spin = SPIN_CYCLES
+    for _ in range(4):
+        held, a, b = (torch.cuda.Event(enable_timing=True)
+                      for _ in range(3))
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        held.record()
+        torch.cuda._sleep(spin)
+        a.record()
+        t_call = time.perf_counter()
+        for _ in range(n):
+            fn()
+        t_end = time.perf_counter()
+        queued_ms = (t_end - t) * 1e3
+        b.record()
+        b.synchronize()
+        if queued_ms < held.elapsed_time(a):
+            return a.elapsed_time(b) / n, (t_end - t_call) * 1e3 / n
+        spin *= 2
+    raise RuntimeError('the host could not queue %d calls ahead of the '
+                       'device' % n)
+
+
+def _cold_ms(torch, fn, n: int = 10) -> float:
+    """Mean device time of one call of ``fn`` whose inputs sit in device
+    memory and not in the 50 MB L2: before each call, timed alone by
+    :func:`_device_ms`, 256 MiB are written over."""
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device='cuda')
+    fn()
+    total = 0.0
+    for _ in range(n):
+        flush.zero_()
+        total += _device_ms(torch, fn, 1, warm=False)[0]
+    return total / n
 
 
 def _equal_dicts(torch, want: dict, got: dict, what: str) -> int:
@@ -229,9 +302,20 @@ def main() -> int:
     K2.load()
     _log('# phase 1 build: %.2f s' % (time.perf_counter() - t0))
     for line in W.build_report().splitlines():
-        if ('registers' in line or 'spill' in line
+        if ('registers' in line or 'spill' in line or 'smem' in line
                 or 'Compiling entry' in line):
             _log('# ptxas: ' + line.strip())
+    l_corpus = corpus.slot_schedule(FRAMES)[1]
+    geo = K2.launch_config(B_CORPUS, l_corpus, FRAMES)
+    k2_resident = K2.resident_blocks(dev, geo['warps'], geo['smem_bytes'])
+    _log('# launch geometry at %d x %d: K1 %s; K2 %s (dynamic shared '
+         'memory per block, not in ptxas\'s report), %d blocks resident '
+         'on the card (%d an SM), so a persistent grid of %d' % (
+             B_CORPUS, l_corpus, W.launch_config(B_CORPUS), geo,
+             k2_resident, k2_resident //
+             torch.cuda.get_device_properties(dev).multi_processor_count,
+             K2.launch_config(B_CORPUS, l_corpus, FRAMES,
+                              k2_resident)['blocks']))
 
     # -- 2. K1 against its plain version --
     t0 = time.perf_counter()
@@ -248,15 +332,37 @@ def main() -> int:
     if frames_found != B_CORPUS * FRAMES or bool(got['bad'].any()):
         raise AssertionError('corpus decode: %d frames, bad=%s'
                              % (frames_found, bool(got['bad'].any())))
-    abuf, alens = corpus.adversarial(seed=1, B=1001, L=512)
+    abuf, alens = corpus.adversarial(seed=1, B=ADV_B, L=ADV_L)
     da, dal = P.batch_to_device(abuf, alens, dev)
     err = max(err, _equal_dicts(torch, W.wire_scan_plain(da, dal, FRAMES),
                                 W.wire_scan(da, dal, FRAMES),
                                 'adversarial'))
     n_bad = int(W.wire_scan(da, dal, FRAMES)['bad'].sum())
+    rcfg = K2.launch_config(RING_B, RING_L, FRAMES)
+    rbuf, rlens = corpus.ring_fleet(SEED, RING_B, RING_L,
+                                    rcfg['stage_bytes'], rcfg['stages'])
+    # K2's warps on these batches, each of which must walk two rows or more
+    k2_warps = {}
+    for what, B, L in (('adversarial', ADV_B, ADV_L),
+                       ('ring edges', RING_B, RING_L)):
+        c = K2.launch_config(B, L, FRAMES)
+        c = K2.launch_config(B, L, FRAMES, K2.resident_blocks(
+            dev, c['warps'], c['smem_bytes']))
+        k2_warps[what] = c['blocks'] * c['warps']
+        if B <= 2 * k2_warps[what]:
+            raise AssertionError('%s: %d rows for %d resident K2 warps; '
+                                 'some warp walks one row only'
+                                 % (what, B, k2_warps[what]))
+    dr, drl = P.batch_to_device(rbuf, rlens, dev)
+    for f in (1, 16, FRAMES):
+        err = max(err, _equal_dicts(torch, W.wire_scan_plain(dr, drl, f),
+                                    W.wire_scan(dr, drl, f),
+                                    'ring edges, %d frames' % f))
     _log('# phase 2 K1 == plain: corpus %d frames, adversarial B=%d '
-         '(%d bad rows), max |d| %d' % (frames_found, abuf.shape[0],
-                                        n_bad, err))
+         '(%d bad rows), ring edges %d x %d (stages of %d B) at 1, 16 and '
+         '%d frames; max |d| %d' % (frames_found, abuf.shape[0], n_bad,
+                                    RING_B, RING_L, rcfg['stage_bytes'],
+                                    FRAMES, err))
 
     # -- 3. tick decode, entry and timings --
     before = W.launches
@@ -272,6 +378,21 @@ def main() -> int:
     if not ((est['n_frames'] > 0).all() and not est['bad'].any()
             and est['starts'].shape == (args[0].shape[0], 64)):
         raise AssertionError('entry() step gave unexpected stats')
+
+    # the live fleet of phases 4 and 7: the corpus's first FLEET streams
+    # and one more connection, two good frames then a bad length prefix
+    streams = [buf_np[i].tobytes() for i in range(FLEET)]
+    xmaps = maps[:FLEET]
+    streams.append(streams[0][:slots[2]['off']] + b'\xff\xff\xff\xf9xx')
+    xmaps.append(dict(maps[0]))
+    # the bucket the ingest stages all of them in, whole, in both modes
+    Bp, Lb = FleetIngest(device='cuda', max_frames=FRAMES)._bucket(
+        len(streams), max(len(x) for x in streams))
+    ibuf = np.zeros((Bp, Lb), np.uint8)
+    ilens = np.zeros((Bp,), np.int32)
+    for i, x in enumerate(streams):
+        ibuf[i, :len(x)] = np.frombuffer(x, np.uint8)
+        ilens[i] = len(x)
 
     def k1():
         W.wire_scan(db, dl, FRAMES)
@@ -290,6 +411,7 @@ def main() -> int:
     k_b = _time_ms(torch, k1, 50)
     p2 = _time_ms(torch, plain, 3)
     k_ms, plain_ms = (k_a + k_b) / 2, (p1 + p2) / 2
+    k_dev, k_host = _device_ms(torch, k1, 50)
     step_ms = _time_ms(torch, step, 20)
     stage = torch.from_numpy(buf_np).pin_memory()
     dst = torch.empty_like(db)
@@ -299,20 +421,42 @@ def main() -> int:
     del stage, dst
     bound_b = W.bound_bytes(B_CORPUS, FRAMES, frames_found)
     bound_ms = bound_b / HBM_BYTES_PER_S * 1e3
-    _log('# phase 3 on %s: K1 %.4f ms (turns %.4f %.4f), plain %.4f ms '
+    ib, il = P.batch_to_device(ibuf, ilens, dev)
+    k1_bucket = W.wire_scan(ib, il, FRAMES)
+    _equal_dicts(torch, W.wire_scan_plain(ib, il, FRAMES), k1_bucket,
+                 'K1 bucket')
+    k1b_bound_b = W.bound_bytes(Bp, FRAMES, int(k1_bucket['counts'].sum()))
+    k1b_bound_ms = k1b_bound_b / HBM_BYTES_PER_S * 1e3
+    k1b_ms = _time_ms(torch, lambda: W.wire_scan(ib, il, FRAMES), 50)
+    k1b_dev, k1b_host = _device_ms(torch,
+                                   lambda: W.wire_scan(ib, il, FRAMES), 50)
+    del ib, il, k1_bucket
+    # K1's latency floor: one row's chain of FRAMES dependent round trips
+    # to device memory, with next to nothing else in flight
+    fb, fl = P.batch_to_device(buf_np[:FLOOR_ROWS], lens_np[:FLOOR_ROWS], dev)
+    floor_ms = _cold_ms(torch, lambda: W.wire_scan(fb, fl, FRAMES))
+    del fb, fl
+    _log('# phase 3 on %s: K1 %.4f ms a wrapper call back to back (turns '
+         '%.4f %.4f), %.4f ms device time, %.4f ms host time a call; bound '
+         '%.4f ms (%d bytes at 3.35 '
+         'TB/s), bound share %.3f (%.3f of device time); plain %.4f ms '
          '(turns %.4f %.4f), auto step %.4f ms, H2D copy of the %.1f MiB '
-         'batch %.4f ms (%.1f GB/s), K1 bound %.4f ms (%d bytes at 3.35 '
-         'TB/s)' % (smi, k_ms, k_a, k_b, plain_ms, p1, p2, step_ms,
-                    buf_np.nbytes / 2**20, h2d_ms,
-                    buf_np.nbytes / h2d_ms / 1e6, bound_ms, bound_b))
+         'batch %.4f ms (%.1f GB/s); at the ingest bucket %d x %d: K1 %.4f '
+         'ms a wrapper call, %.4f ms device time, %.4f ms host time a '
+         'call, bound %.4f ms (%d bytes), bound share %.3f (%.3f of device '
+         'time); latency floor '
+         '(K1 on %d rows, the batch evicted from L2) %.4f ms, %.3f us a '
+         'frame step' % (
+             smi, k_ms, k_a, k_b, k_dev, k_host, bound_ms, bound_b,
+             bound_ms / k_ms,
+             bound_ms / k_dev, plain_ms, p1, p2, step_ms,
+             buf_np.nbytes / 2**20, h2d_ms, buf_np.nbytes / h2d_ms / 1e6,
+             Bp, Lb, k1b_ms, k1b_dev, k1b_host, k1b_bound_ms, k1b_bound_b,
+             k1b_bound_ms / k1b_ms, k1b_bound_ms / k1b_dev, FLOOR_ROWS,
+             floor_ms, floor_ms * 1e3 / FRAMES))
 
     # -- 4. the main path: live fleet ingest --
     rng = np.random.RandomState(SEED + 1)
-    streams = [buf_np[i].tobytes() for i in range(FLEET)]
-    xmaps = maps[:FLEET]
-    # one more connection: two good frames, then a bad length prefix
-    streams.append(streams[0][:slots[2]['off']] + b'\xff\xff\xff\xf9xx')
-    xmaps.append(dict(maps[0]))
     chunks = []
     for s in streams:
         a, b = sorted(rng.randint(0, len(s) + 1, 2).tolist())
@@ -320,7 +464,7 @@ def main() -> int:
     wants = [_scalar_drain(PacketCodec, ch, m)
              for ch, m in zip(chunks, xmaps)]
     conns = [StandIn(_codec(PacketCodec, m)) for m in xmaps]
-    del db, dl, da, dal, got, want, st
+    del db, dl, da, dal, dr, drl, got, want, st
     torch.cuda.synchronize()
     ing = FleetIngest(device='cuda', body_mode='host', bypass_bytes=0,
                       warm='block', max_frames=FRAMES)
@@ -373,6 +517,12 @@ def main() -> int:
     err2 = max(err2, _equal_dicts(
         torch, K2.full_scan_plain(dg, dgl, FRAMES, MAX_DATA),
         K2.full_scan(dg, dgl, FRAMES, MAX_DATA), 'K2 getdata'))
+    dr, drl = P.batch_to_device(rbuf, rlens, dev)
+    for f, md in ((1, MAX_DATA), (16, 20), (FRAMES, MAX_DATA)):
+        err2 = max(err2, _equal_dicts(
+            torch, K2.full_scan_plain(dr, drl, f, md),
+            K2.full_scan(dr, drl, f, md),
+            'K2 ring edges, %d frames, max_data %d' % (f, md)))
     st_k, gd_k = P.wire_full_decode(db, dl, FRAMES, MAX_DATA)
     st_p = P.wire_pipeline_step(db, dl, FRAMES)
     gd_p = P.getdata_bodies(db, st_p, MAX_DATA)
@@ -389,10 +539,13 @@ def main() -> int:
                                  % f)
     del st_k, gd_k, st_p, gd_p
     _log('# phase 5 K2 == plain: corpus %d GET_DATA frames of %d B, '
-         'adversarial B=%d, getdata B=%d; max |d| %d; wire_full_decode == '
+         'adversarial B=%d (%d resident warps), getdata B=%d, ring edges '
+         '%d x %d (%d resident warps) at (frames, max_data) (1, %d), '
+         '(16, 20), (%d, %d); max |d| %d; wire_full_decode == '
          'wire_pipeline_step + getdata_bodies on the corpus (%.2f s)' % (
-             data_frames, MAX_DATA, abuf.shape[0], gbuf.shape[0], err2,
-             time.perf_counter() - t0))
+             data_frames, MAX_DATA, abuf.shape[0], k2_warps['adversarial'],
+             gbuf.shape[0], RING_B, RING_L, k2_warps['ring edges'],
+             MAX_DATA, FRAMES, MAX_DATA, err2, time.perf_counter() - t0))
 
     # -- 6. K2 timings --
     def k2():
@@ -408,17 +561,18 @@ def main() -> int:
     k_b = _time_ms(torch, k2, 20)
     p2 = _time_ms(torch, k2_plain, 3)
     k2_ms, k2_plain_ms = (k_a + k_b) / 2, (p1 + p2) / 2
+    k2_dev, k2_host = _device_ms(torch, k2, 20)
     bound2_ms = bound2_b / HBM_BYTES_PER_S * 1e3
-    del db, dl, da, dal, dg, dgl
+    del db, dl, da, dal, dg, dgl, dr, drl
     # the bucket the ingest stages all 1,025 whole streams in
     ding = FleetIngest(device='cuda', body_mode='device', max_frames=FRAMES)
-    Bp, Lb = ding._bucket(len(streams), max(len(x) for x in streams))
-    ibuf = np.zeros((Bp, Lb), np.uint8)
-    ilens = np.zeros((Bp,), np.int32)
-    for i, x in enumerate(streams):
-        ibuf[i, :len(x)] = np.frombuffer(x, np.uint8)
-        ilens[i] = len(x)
     ib, il = P.batch_to_device(ibuf, ilens, dev)
+    k2b_want = K2.full_scan_plain(ib, il, FRAMES, MAX_DATA)
+    _equal_dicts(torch, k2b_want, K2.full_scan(ib, il, FRAMES, MAX_DATA),
+                 'K2 bucket')
+    k2b_bound_b = K2.bound_bytes(k2b_want, MAX_DATA)
+    k2b_bound_ms = k2b_bound_b / HBM_BYTES_PER_S * 1e3
+    del k2b_want
 
     def dstep():
         ding._step(ib, il)
@@ -460,6 +614,7 @@ def main() -> int:
         fn()
     dstep_ms = _time_ms(torch, dstep, 5)
     k2b_ms = _time_ms(torch, k2_bucket, 20)
+    k2b_dev, k2b_host = _device_ms(torch, k2_bucket, 20)
     decode_ms = _time_ms(torch, decode, 10)
     replies_ms = _time_ms(torch, replies, 5)
     lists_ms = _time_ms(torch, lists, 5)
@@ -469,18 +624,23 @@ def main() -> int:
     n_ints, n_byts = ints.shape[1], byts[0].numel()
     rb_mb = (ints.numel() * 4 + byts.numel()) / 1e6
     del ib, il, ding, ints, byts, h_ints, h_byts, st_b, gd_b, bd_b, lb_b
-    _log('# phase 6 on %s: K2 %.4f ms (turns %.4f %.4f), plain %.4f ms '
-         '(turns %.4f %.4f), K2 bound %.4f ms (%d bytes at 3.35 TB/s) at '
-         '%d x %d, max_data %d; at the ingest bucket %d x %d: device-body '
-         'step (K2 + torch bodies + pack) %.4f ms: decode (K2, unpack, '
-         'reductions) %.4f ms of which K2 %.4f ms, parse_reply_bodies '
-         '%.4f ms, parse_list_bodies %.4f ms, pack %.4f ms; '
-         'packed %d int32 + %d uint8 per row, their readback (%.1f MB) '
-         '%.4f ms (%.1f GB/s)' % (
-             smi, k2_ms, k_a, k_b, k2_plain_ms, p1, p2, bound2_ms, bound2_b,
-             B_CORPUS, FRAMES, MAX_DATA, Bp, Lb, dstep_ms, decode_ms,
-             k2b_ms, replies_ms, lists_ms, pack_ms, n_ints, n_byts,
-             rb_mb, rb_ms, rb_mb / rb_ms))
+    _log('# phase 6 on %s: K2 %.4f ms a wrapper call back to back (turns '
+         '%.4f %.4f), %.4f ms device time, %.4f ms host time a call, plain '
+         '%.4f ms (turns %.4f %.4f), K2 bound %.4f ms (%d bytes at 3.35 TB/s), bound share '
+         '%.3f (%.3f of device time) at %d x %d, max_data %d; at the ingest '
+         'bucket %d x %d: K2 %.4f ms a wrapper call, %.4f ms device time, '
+         '%.4f ms host time a call, bound %.4f ms (%d bytes), bound share %.3f (%.3f of device '
+         'time); device-body step (K2 + torch bodies + pack) %.4f ms: '
+         'decode (K2, unpack, reductions) %.4f ms, parse_reply_bodies %.4f '
+         'ms, parse_list_bodies %.4f ms, pack %.4f ms; packed %d int32 + '
+         '%d uint8 per row, their readback (%.1f MB) %.4f ms (%.1f GB/s)'
+         % (smi, k2_ms, k_a, k_b, k2_dev, k2_host, k2_plain_ms, p1, p2,
+            bound2_ms,
+            bound2_b, bound2_ms / k2_ms, bound2_ms / k2_dev, B_CORPUS,
+            FRAMES, MAX_DATA, Bp, Lb, k2b_ms, k2b_dev, k2b_host, k2b_bound_ms,
+            k2b_bound_b, k2b_bound_ms / k2b_ms, k2b_bound_ms / k2b_dev,
+            dstep_ms, decode_ms, replies_ms, lists_ms, pack_ms, n_ints,
+            n_byts, rb_mb, rb_ms, rb_mb / rb_ms))
 
     # -- 7. the device-body path: live fleet ingest --
     conns = [StandIn(_codec(PacketCodec, m)) for m in xmaps]
@@ -525,10 +685,15 @@ def main() -> int:
         'max_abs_err': err,
         'equal': err == 0,
         'ms': k_ms,
+        'device_ms': k_dev,
         'plain_ms': plain_ms,
         'bound_ms': bound_ms,
         'bound_by': 'bytes',
+        'bound_share': bound_ms / k_ms,
         'library_ms': None,
+        'bucket': {'shape': [Bp, Lb], 'ms': k1b_ms, 'device_ms': k1b_dev,
+                   'bound_ms': k1b_bound_ms,
+                   'bound_share': k1b_bound_ms / k1b_ms},
     }, {
         'name': 'K2 full_scan (K1 + GET_DATA body words)',
         'route': 'cuda',
@@ -538,10 +703,15 @@ def main() -> int:
         'max_abs_err': err2,
         'equal': err2 == 0,
         'ms': k2_ms,
+        'device_ms': k2_dev,
         'plain_ms': k2_plain_ms,
         'bound_ms': bound2_ms,
         'bound_by': 'bytes',
+        'bound_share': bound2_ms / k2_ms,
         'library_ms': None,
+        'bucket': {'shape': [Bp, Lb], 'ms': k2b_ms, 'device_ms': k2b_dev,
+                   'bound_ms': k2b_bound_ms,
+                   'bound_share': k2b_bound_ms / k2b_ms},
     }]
     _log('# total %.1f s' % (time.perf_counter() - t_start))
     print(smi)

@@ -28,11 +28,20 @@ def _random_bytes():
     return buf, lens
 
 
+def _ring(seed, B, L):
+    """``corpus.ring_fleet`` at the stage size K2 takes for ``[B, L]``."""
+    cfg = TK2.launch_config(B, L, 64)
+    return corpus.ring_fleet(seed, B, L, cfg['stage_bytes'], cfg['stages'])
+
+
 _INPUTS = {
     'adversarial': lambda: corpus.adversarial(0),
     'adversarial_odd': lambda: corpus.adversarial(1, B=17, L=256),
     'random_bytes': _random_bytes,
     'corpus': _corpus_small,
+    # K2's ring edges: L % 16 == 4 and B not a multiple of 8 warps
+    'ring': lambda: _ring(0, 96, 6004),
+    'ring_odd': lambda: _ring(1, 61, 4700),
 }
 
 #: K2's inputs: K1's plus GET_DATA-layout fleets at both widths
@@ -93,7 +102,57 @@ def test_k2_matches_plain_on_card(cuda_device, name, max_data):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize('name', ['getdata256', 'corpus', 'adversarial'])
+@pytest.mark.parametrize('name', ['ring', 'ring_odd'])
+@pytest.mark.parametrize('max_frames', [0, 1, 16, 64])
+@pytest.mark.parametrize('max_data', [0, 20, 256])
+def test_k2_ring_edges_on_card(cuda_device, name, max_frames, max_data):
+    """K2 on the ring-edge rows at every walk depth and at data widths
+    with no words, with a width not a multiple of 4 words (scalar
+    stores), and the main path's."""
+    buf, lens = _K2_INPUTS[name]()
+    db, dl = TP.batch_to_device(buf, lens, cuda_device)
+    before = TK2.launches
+    got = TK2.full_scan(db, dl, max_frames, max_data)
+    torch.cuda.synchronize()
+    assert TK2.launches == before + 1
+    want = TK2.full_scan_plain(db, dl, max_frames, max_data)
+    for k in want:
+        assert torch.equal(want[k], got[k]), k
+
+
+#: Batches with more than twice as many rows as K2 keeps warps resident
+#: (4,224 on an H100 at their geometries): odd B, every row kind repeated
+_MANY_ROWS = {
+    'adversarial': lambda: corpus.adversarial(4, B=9001, L=512),
+    'ring': lambda: _ring(2, 9001, 6004),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('name', sorted(_MANY_ROWS))
+@pytest.mark.parametrize('max_frames,max_data', [(16, 20), (64, 256)])
+def test_k2_warps_walk_several_rows(cuda_device, name, max_frames,
+                                    max_data):
+    """Every warp of K2's persistent grid walks two rows or more, rows
+    that stop early (bad prefixes, incomplete frames, lens < 0 or > L)
+    followed by others: the ring's copies are drained, its mbarrier
+    phases carried and the next row's stages started across rows."""
+    buf, lens = _MANY_ROWS[name]()
+    B, L = buf.shape
+    cfg = TK2.launch_config(B, L, max_frames)
+    cfg = TK2.launch_config(B, L, max_frames, TK2.resident_blocks(
+        cuda_device, cfg['warps'], cfg['smem_bytes']))
+    assert B > 2 * cfg['blocks'] * cfg['warps']
+    db, dl = TP.batch_to_device(buf, lens, cuda_device)
+    got = TK2.full_scan(db, dl, max_frames, max_data)
+    want = TK2.full_scan_plain(db, dl, max_frames, max_data)
+    for k in want:
+        assert torch.equal(want[k], got[k]), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('name', ['getdata256', 'corpus', 'adversarial',
+                                  'ring'])
 def test_full_decode_on_card_equals_cpu(cuda_device, name):
     buf, lens = _K2_INPUTS[name]()
     cpu = TP.wire_full_decode(*TP.batch_to_device(buf, lens, 'cpu'),

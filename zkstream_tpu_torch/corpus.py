@@ -281,3 +281,133 @@ def getdata_fleet(seed: int = 0, B: int = 13, L: int = 512,
         buf[i, :len(s)] = np.frombuffer(s, np.uint8)
         lens[i] = len(s)
     return buf, lens
+
+
+def ring_fleet(seed: int = 0, B: int = 96, L: int = 6004,
+               stage_bytes: int = 1024, stages: int = 4):
+    """Rows that put kernel K2's shared-memory ring at its edges, for
+    holding it against its plain version.  K2 stages a row's 16-byte
+    aligned interior in stages of ``stage_bytes`` (row offsets
+    ``hoff + k * stage_bytes``, ``hoff = -row_address mod 16``; a
+    ``[B, L]`` batch at a 16-byte aligned address puts row ``i`` at
+    ``i * L``), ``stages`` of them in flight per warp.
+
+    The batch holds: frames whose length prefix, header, jute length,
+    data or Stat start 4 bytes before to 4 bytes after a stage boundary
+    (GET_DATA frames of assorted payload lengths, placed by a pad frame);
+    runs of frames one stage long, give or take 1-4 bytes; a frame
+    longer than the whole ring, then more frames; a bad length prefix
+    after a long frame; GET_DATA frames with jute lengths -1, 0, 255,
+    256 and 257; a jute length that overruns its frame; a row filled to
+    exactly ``L``; an empty row; rows with ``lens > L``, ``lens < 0``
+    and ``lens = 0`` over real frames.  Pick ``L % 16 != 0`` (the
+    default) and rows start at every alignment.  Returns ``(buf uint8
+    [B, L], lens int32 [B])``."""
+    import random
+    import struct
+
+    SB = stage_bytes
+    if L < stages * SB + 512:
+        raise ValueError('ring_fleet needs L >= stages * stage_bytes + 512 '
+                         'for a frame longer than the ring')
+    rng = random.Random(seed)
+    P = struct.Struct('>i').pack
+
+    def rb(k):
+        return rng.randbytes(k)
+
+    def head():
+        return struct.pack('>iqi', rng.randrange(1, 1 << 20),
+                           rng.randrange(1 << 40), rng.choice([0, 0, -101]))
+
+    def getdata(dlen, data=None):
+        body = head() + P(dlen)
+        body += rb(max(dlen, 0)) if data is None else data
+        body += rb(68)
+        return P(len(body)) + body
+
+    def sized(total):
+        """A frame of exactly ``total`` bytes (``total >= 4``): a
+        GET_DATA reply where it has room for one, else header (and
+        junk) only."""
+        ln = total - 4
+        if ln >= 88:
+            return getdata(ln - 88)
+        if ln >= 16:
+            return P(ln) + head() + rb(ln - 16)
+        return P(ln) + rb(ln)
+
+    def pad_to(s, upto):
+        gap = upto - len(s)
+        if gap == 0:
+            return s
+        if gap < 4:
+            raise AssertionError('pad gap %d' % gap)
+        return s + sized(gap)
+
+    def stage_runs(s):
+        while len(s) < L:
+            s += sized(SB + rng.choice([-4, -3, -2, -1, 1, 2, 3, 4]))
+        return s
+
+    def hoff(i):
+        return (-i * L) % 16
+
+    dlens = (0, 1, 3, 64, 255, 256, 257, 300)
+    fields = ('len', 'xid', 'zxid', 'err', 'dlen', 'data', 'data_mid',
+              'stat')
+
+    def straddle(i, k):
+        f = fields[k % len(fields)]
+        delta = (k // len(fields)) % 9 - 4
+        dlen = dlens[(k // 3) % len(dlens)]
+        at = {'len': 0, 'xid': 4, 'zxid': 8, 'err': 16, 'dlen': 20,
+              'data': 24, 'data_mid': 24 + (dlen // 2 & ~3),
+              'stat': 24 + dlen}[f]
+        bound = hoff(i) + SB * (1 + k % 2)
+        start = bound + delta - at
+        if 0 < start < 4:
+            start += SB
+        s = pad_to(b'', start) + getdata(dlen)
+        return stage_runs(s)
+
+    specials = [
+        lambda i: b'',                                           # empty
+        lambda i: sized(stages * SB + 300) + getdata(256)        # > ring
+        + getdata(-1) + sized(SB + 2) + getdata(17),
+        lambda i: sized(stages * SB + 37) + P(-7) + rb(40),      # bad
+        lambda i: b''.join(getdata(d) for d in (-1, 0, 255, 256, 257,
+                                                -1, 257, 0)),
+        lambda i: pad_to(b'', hoff(i) + SB - 22)                 # overrun
+        + P(16 + 4 + 40) + head() + P(4096) + rb(40) + getdata(5),
+        lambda i: pad_to(b'', L - 4 - 100) + sized(104),         # exactly L
+    ]
+    lens_over = [
+        # a last frame that runs past L but ends inside lens
+        ('gt', lambda i: pad_to(b'', L - 200) + getdata(300), L + 200),
+        ('neg', lambda i: stage_runs(b''), -3),
+        ('zero', lambda i: stage_runs(b''), 0),
+    ]
+    buf = np.zeros((B, L), np.uint8)
+    lens = np.zeros((B,), np.int32)
+    n_fixed = len(specials) + len(lens_over)
+    for i in range(B):
+        forced = None
+        if i < len(specials):
+            s = specials[i](i)
+        elif i < n_fixed:
+            _kind, make, forced = lens_over[i - len(specials)]
+            s = make(i)
+        elif i - n_fixed < len(fields) * 9:
+            s = straddle(i, i - n_fixed)
+        else:
+            s = b''
+            while len(s) < L:
+                s += rng.choice([
+                    sized(SB + rng.randrange(-4, 5)),
+                    sized(rng.randrange(4, 200)),
+                    getdata(rng.choice(dlens + (-1,)))])
+        s = s[:L]
+        buf[i, :len(s)] = np.frombuffer(s, np.uint8)
+        lens[i] = len(s) if forced is None else forced
+    return buf, lens

@@ -2,18 +2,34 @@
 
 Replaces the TPU kernel ``zkstream_tpu/ops/pallas_scan.py::_kernel``
 (launched by ``pallas_wire_scan``).  The CUDA C++ source is
-``zkstream_tpu_torch/csrc/wire_scan.cu``: one thread per stream row
-walks up to ``max_frames`` frames with byte loads from device memory
-and writes ``[B, F]`` planes directly (the TPU's ``[F, B]`` layout and
-its lane-roll "gathers" were Mosaic tiling artefacts).  The same
-library holds kernel K2 (ops/full_scan.py), which shares K1's frame
-step; this module builds and loads it.
+``zkstream_tpu_torch/csrc/wire_scan.cu``; the same library holds kernel
+K2 (ops/full_scan.py), which shares K1's frame step; this module builds
+and loads it.
 
-What bounds it on an H100: memory.  It reads 20 bytes per frame found
-(the 4-byte length prefix and the 16-byte reply header) and 4 bytes of
-``lens`` per row, and writes 24 bytes per frame slot (six int32 planes)
-plus 9 bytes per row (``counts``, ``resid``, ``bad``) —
-:func:`bound_bytes` counts exactly that.
+What bounds it on an H100: dependent device-memory round trips, not
+bandwidth.  It must move only 20 bytes per frame found (the 4-byte
+length prefix and the 16-byte reply header) plus 4 bytes of ``lens``
+per row, and 24 bytes per frame slot (six int32 planes) plus 9 per row
+written — :func:`bound_bytes` counts exactly that, about 14 us at the
+bench shape.  But where a frame starts depends on the length of the one
+before it, so a row of 64 frames is 64 round trips one after the other:
+one row alone takes longer than the whole bound (``chip_smoke.py``
+measures this latency floor), so no walk that touches device memory
+once a frame comes near the bound.  With every row of a tick in flight
+the round trips also queue behind one another's scattered sectors,
+so a step should fetch no sector it does not use.
+
+The design (:func:`launch_config` computes its geometry): one thread per
+row with every row of a tick resident in one wave, so the rows' chains
+overlap.  Each frame step issues all of its loads — the two or three
+aligned 16-byte words covering ``[cur, cur+20)``, no sector more than
+the head spans — before it uses any, one round trip a step, and cuts
+the length and header words out of them with funnel shifts.  A thread
+keeps eight frames' values in registers and writes each of the six
+``[B, F]`` planes' eight as two 16-byte streaming stores: whole 32-byte
+sectors, which device memory takes without merging partial ones.
+(Staging a block's planes in shared memory to write them as runs of
+frames took longer.)
 
 The library is built with ``nvcc`` for ``sm_90a`` into ``build/`` at
 the repository root on first use (:func:`load`) and bound with
@@ -53,6 +69,11 @@ _build_log = ''
 _lock = threading.Lock()
 
 _PLANES = ('starts', 'sizes', 'xid', 'zxid_hi', 'zxid_lo', 'err')
+
+#: Rows (threads) per K1 block, the kernel's ``__launch_bounds__``.
+K1_THREADS = 64
+#: The kernels' row offsets are 32-bit: rows of at most INT32_MAX bytes.
+_MAX_ROW = 2**31 - 1
 
 
 def _nvcc() -> str:
@@ -100,8 +121,9 @@ def load():
             lib = ctypes.CDLL(str(path))
             fn = lib.wire_scan_launch
             fn.argtypes = ([ctypes.c_void_p] * 2
-                           + [ctypes.c_int, ctypes.c_longlong, ctypes.c_int]
-                           + [ctypes.c_void_p] * 10)
+                           + [ctypes.c_int, ctypes.c_longlong]
+                           + [ctypes.c_int] * 3
+                           + [ctypes.c_void_p] * 5)
             fn.restype = ctypes.c_int
             _lib = lib
     return _lib
@@ -139,6 +161,13 @@ def _check(buf, lens, max_frames: int) -> None:
         raise ValueError('max_frames must be >= 0')
 
 
+def launch_config(B: int) -> dict:
+    """K1's launch geometry for a batch of ``B`` rows: ``threads`` rows a
+    block and ``blocks`` to cover ``B``.  Each thread walks its row in
+    registers; the kernel takes no shared memory."""
+    return {'threads': K1_THREADS, 'blocks': -(-B // K1_THREADS)}
+
+
 def wire_scan(buf, lens, max_frames: int) -> dict:
     """Frame scan + header parse of a ``uint8 [B, L]`` batch.
 
@@ -150,25 +179,29 @@ def wire_scan(buf, lens, max_frames: int) -> dict:
     """
     global launches
     _check(buf, lens, max_frames)
-    if buf.device.type == 'cpu':
+    dev = buf.device
+    if dev.type == 'cpu':
         return wire_scan_plain(buf, lens, max_frames)
-    if buf.device.type != 'cuda':
-        raise ValueError('K1 runs on CUDA or CPU tensors, not %s'
-                         % (buf.device,))
+    if dev.type != 'cuda':
+        raise ValueError('K1 runs on CUDA or CPU tensors, not %s' % (dev,))
     if not (buf.is_contiguous() and lens.is_contiguous()):
         raise ValueError('K1 needs contiguous buf and lens')
+    if buf.shape[1] > _MAX_ROW:
+        raise ValueError('K1 takes rows of at most %d bytes' % _MAX_ROW)
     lib = load()
     B, L = buf.shape
-    out = {name: torch.empty((B, max_frames), dtype=torch.int32,
-                             device=buf.device) for name in _PLANES}
-    out['counts'] = torch.empty((B,), dtype=torch.int32, device=buf.device)
-    out['resid'] = torch.empty((B,), dtype=torch.int32, device=buf.device)
-    out['bad'] = torch.empty((B,), dtype=torch.bool, device=buf.device)
-    with torch.cuda.device(buf.device):
+    cfg = launch_config(B)
+    hdr = torch.empty((len(_PLANES), B, max_frames), dtype=torch.int32,
+                      device=dev)
+    out = dict(zip(_PLANES, hdr.unbind(0)))
+    out['counts'] = torch.empty((B,), dtype=torch.int32, device=dev)
+    out['resid'] = torch.empty((B,), dtype=torch.int32, device=dev)
+    out['bad'] = torch.empty((B,), dtype=torch.bool, device=dev)
+    with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.wire_scan_launch(
             buf.data_ptr(), lens.data_ptr(), B, L, max_frames,
-            *(out[name].data_ptr() for name in _PLANES),
+            cfg['threads'], cfg['blocks'], hdr.data_ptr(),
             out['counts'].data_ptr(), out['resid'].data_ptr(),
             out['bad'].data_ptr(), stream)
     if rc != 0:

@@ -11,7 +11,13 @@ Phases (any failure exits non-zero; nothing is caught):
    ``zkstream_tpu_torch/csrc/wire_scan.cu``) with nvcc for sm_90a into
    ``build/`` and print ptxas's register/spill/shared-memory report of
    each, each kernel's launch geometry at the bench shape, and the K2
-   blocks the card holds at once (its persistent grid).
+   blocks the card holds at once (its persistent grid).  Beside the
+   nvcc build, and at the same time, build the host codec tier with
+   gcc/g++ into ``build/``: the C-ABI frame scanner
+   (``csrc/zkwire.cpp``) and the C-extension codec
+   (``csrc/zkwire_ext.c``, against the interpreter's ``Python.h``), and
+   print their paths and ABI numbers.  Either one missing is a failure:
+   there is no quiet fall back to the Python codec.
 2. Hold K1 against its plain torch version on the card, exactly
    (integer planes, tolerance 0): the deployed-shaped corpus (16384
    streams x 64 mixed-opcode frames, ~247 MiB, seed 42), an
@@ -38,9 +44,20 @@ Phases (any failure exits non-zero; nothing is caught):
    bypass_bytes=0, warm='block', max_frames=64)`` serves 1,024
    stand-in connections fed their corpus streams in three chunks cut
    at seeded offsets, plus one connection carrying a bad length
-   prefix.  Every delivery must equal the scalar codec's, and K1's
-   launches (counted from 0 just before this phase) must equal the
-   ingest's device ticks; K2 is not launched.
+   prefix — twice: first with ``PacketCodec(use_native=False)``
+   codecs (packets assembled by the Python loop), then with
+   ``use_native=True`` codecs, the reference's default, where every
+   routed stream with frames goes to the C extension in one call
+   (``_assemble_ext``, counted here) and the Python loop never runs.
+   In each run every delivery must equal the pure-Python scalar
+   drain's, the bad prefix must give BAD_LENGTH, and K1's launches
+   (counted from 0 just before the run) must equal the ingest's device
+   ticks, with no K2 launch.  Each run prints its mean tick, the
+   device half a tick, the host-routing share, the time in packet
+   assembly (and in the C calls) and the garbage collector's pauses.
+   A third run repeats the C one with the script's own heap (corpus,
+   xid maps, the scalar drain's packets) frozen out of the collector's
+   reach (``gc.freeze()``), which shows what those pauses cost.
 5. Hold K2 against its plain torch version on the card, exactly: the
    corpus at ``max_data=256`` (its GET_DATA payloads are exactly 256
    B, so every data frame fits), the adversarial batch, and a
@@ -59,7 +76,9 @@ Phases (any failure exits non-zero; nothing is caught):
    readback of the packed arrays.
 7. The device-body path: ``FleetIngest(device='cuda',
    body_mode='device', bypass_bytes=0, warm='block', max_frames=64)``
-   serves the same 1,025 connections as phase 4.  Every delivery must
+   serves the same 1,025 connections as phase 4, with
+   ``use_native=True`` codecs (their bodies come from the planes, not
+   the C extension; the bad stream's fallback uses it).  Every delivery must
    equal the scalar codec's, the bad prefix must give BAD_LENGTH, K2's
    launches (counted from 0 just before this phase) must equal the
    device ticks, K1 must not launch, and no body may fall back to the
@@ -74,10 +93,13 @@ non-zero and prints no result.
 from __future__ import annotations
 
 import asyncio
+import concurrent.futures
+import gc
 import json
 import os
 import subprocess
 import sys
+import sysconfig
 import time
 
 import numpy as np
@@ -201,8 +223,9 @@ class StandIn:
 
 
 def _scalar_drain(PacketCodec, chunks, xid_map):
-    """The per-socket scalar drain of one connection's chunks."""
-    codec = _codec(PacketCodec, xid_map)
+    """The per-socket pure-Python scalar drain of one connection's
+    chunks."""
+    codec = _codec(PacketCodec, xid_map, use_native=False)
     pkts, code = [], None
     for piece in chunks:
         try:
@@ -246,8 +269,58 @@ def _timed(ing, step_s: list) -> None:
     ing._run_step = timed_step
 
 
-def _codec(PacketCodec, xid_map):
-    c = PacketCodec()
+def _count_assembly(ing) -> dict:
+    """Count the streams ``_assemble_stream`` is given with frames and the
+    calls of the C path ``_assemble_ext``, and time both on the host
+    clock (``stream_s`` includes ``ext_s``).  A stream with frames takes
+    either ``_assemble_ext`` or the Python loop, so equal counts mean
+    the loop never ran."""
+    counts = {'with_frames': 0, 'ext': 0, 'stream_s': 0.0, 'ext_s': 0.0}
+    assemble, assemble_ext = ing._assemble_stream, ing._assemble_ext
+
+    def counted_stream(conn, buf, st, bd, i, n):
+        counts['with_frames'] += n > 0
+        t = time.perf_counter()
+        out = assemble(conn, buf, st, bd, i, n)
+        counts['stream_s'] += time.perf_counter() - t
+        return out
+
+    def counted_ext(*args):
+        counts['ext'] += 1
+        t = time.perf_counter()
+        out = assemble_ext(*args)
+        counts['ext_s'] += time.perf_counter() - t
+        return out
+
+    ing._assemble_stream = counted_stream
+    ing._assemble_ext = counted_ext
+    return counts
+
+
+class _GcPauses:
+    """The interpreter's garbage-collector pauses while installed: their
+    total seconds and their count by generation."""
+
+    def __init__(self):
+        self.s, self.n, self._t = 0.0, [0, 0, 0], 0.0
+
+    def __call__(self, phase, info):
+        if phase == 'start':
+            self._t = time.perf_counter()
+        else:
+            self.s += time.perf_counter() - self._t
+            self.n[info['generation']] += 1
+
+    def __enter__(self):
+        gc.callbacks.append(self)
+        return self
+
+    def __exit__(self, *exc):
+        gc.callbacks.remove(self)
+
+
+def _codec(PacketCodec, xid_map, use_native: bool):
+    c = PacketCodec(use_native=use_native)
     c.handshaking = False
     c.xid_map.update(xid_map)
     return c
@@ -271,6 +344,88 @@ async def _serve(ing, conns, chunks):
         await asyncio.sleep(0.001)
 
 
+def _host_run(FleetIngest, W, K2, PacketCodec, xmaps, chunks, wants,
+              use_native: bool, freeze: bool, what: str, smi: str) -> dict:
+    """Phase 4: serve the fleet once through a host-body
+    ``FleetIngest(device='cuda')`` with ``PacketCodec(use_native=...)``
+    stand-ins, check it against the scalar drain, the launch counts and
+    the assembly route, and print the tick's breakdown.  ``freeze``
+    moves every object alive before the run (the corpus, its xid maps,
+    the scalar drain's packets: the script's own heap) out of the
+    garbage collector's reach with ``gc.freeze()`` for the run, so its
+    collections scan only what the ingest allocates."""
+    import torch
+
+    conns = [StandIn(_codec(PacketCodec, m, use_native)) for m in xmaps]
+    if any((c.codec.ext is not None) != use_native for c in conns):
+        raise AssertionError('%s: C extension present is not %s'
+                             % (what, use_native))
+    torch.cuda.synchronize()
+    ing = FleetIngest(device='cuda', body_mode='host', bypass_bytes=0,
+                      warm='block', max_frames=FRAMES)
+    step_s: list = []
+    _timed(ing, step_s)
+    counts = _count_assembly(ing)
+    # warm='block' warms the bucket inside the first tick: time it
+    warm_s: list = []
+    try_warm = ing._try_warm
+
+    def timed_warm(key):
+        t = time.perf_counter()
+        out = try_warm(key)
+        warm_s.append(time.perf_counter() - t)
+        return out
+
+    ing._try_warm = timed_warm
+    if freeze:
+        gc.collect()
+        gc.freeze()
+    W.launches = K2.launches = 0
+    t0 = time.perf_counter()
+    try:
+        with _GcPauses() as pauses:
+            asyncio.run(_serve(ing, conns, chunks))
+    finally:
+        if freeze:
+            gc.unfreeze()
+    wall = time.perf_counter() - t0
+    launches, k2_host = W.launches, K2.launches
+    if not (ing.ticks > 0 and launches == ing.ticks and k2_host == 0
+            and ing.ticks_scalar == 0 and ing.ticks_warming == 0):
+        raise AssertionError(
+            '%s: ingest ticks %d (scalar %d, warming %d) vs K1 launches %d, '
+            'K2 launches %d' % (what, ing.ticks, ing.ticks_scalar,
+                                ing.ticks_warming, launches, k2_host))
+    want_ext = counts['with_frames'] if use_native else 0
+    if not (counts['with_frames'] > 0 and counts['ext'] == want_ext):
+        raise AssertionError(
+            '%s: %d streams with frames routed, %d through _assemble_ext '
+            '(expected %d)' % (what, counts['with_frames'], counts['ext'],
+                               want_ext))
+    n_pkts = _check_fleet(conns, wants)
+    tick_ms = ing.tick_hist.sum() / max(ing.tick_hist.count(), 1)
+    dev_ms = sum(step_s) * 1e3 / len(step_s)
+    per_tick = 1e3 / ing.ticks
+    _log('# phase 4 (%s) on %s: %d connections, %d packets equal to the '
+         'pure-Python scalar drain, bad prefix -> %s; %d device ticks = %d '
+         'K1 launches, 0 K2; %d streams with frames routed, %d through '
+         '_assemble_ext; mean tick %.3f ms, of which the device half '
+         '(stage, copy, K1, pack, readback) %.3f ms per tick: %s; host '
+         'routing %.3f ms a tick, %.1f %% of it, of which packet assembly '
+         '%.3f ms a tick (the C calls %.3f ms); the bucket warm-up inside '
+         'the first tick %.3f ms; garbage-collector pauses in the run %.3f '
+         'ms a tick (collections by generation %s); phase wall %.2f s'
+         % (what, smi, len(conns), n_pkts,
+            getattr(conns[-1].err, 'code', None), ing.ticks, launches,
+            counts['with_frames'], counts['ext'], tick_ms, dev_ms,
+            ' '.join('%.3f' % (x * 1e3) for x in step_s), tick_ms - dev_ms,
+            100.0 * (1.0 - dev_ms / tick_ms), counts['stream_s'] * per_tick,
+            counts['ext_s'] * per_tick, sum(warm_s) * 1e3,
+            pauses.s * per_tick, pauses.n, wall))
+    return {'tick_ms': tick_ms, 'device_ms': dev_ms,
+            'routing_share': 1.0 - dev_ms / tick_ms, 'launches': launches}
+
+
 def main() -> int:
     import torch
 
@@ -286,6 +441,7 @@ def main() -> int:
     from zkstream_tpu_torch.ops import replies as R
     from zkstream_tpu_torch.ops import wire_scan as W
     from zkstream_tpu_torch.protocol.framing import PacketCodec
+    from zkstream_tpu_torch.utils import native as N
 
     t_start = time.perf_counter()
     dev = torch.device('cuda')
@@ -296,11 +452,29 @@ def main() -> int:
     _log('# card: %s (torch %s, CUDA %s)' % (smi, torch.__version__,
                                               torch.version.cuda))
 
-    # -- 1. build --
+    # -- 1. build: nvcc for the kernels and gcc/g++ for the host codec
+    # tier, all started together --
     t0 = time.perf_counter()
-    W.load()
+    py_h = os.path.join(sysconfig.get_paths()['include'], 'Python.h')
+    if not os.path.exists(py_h):
+        raise RuntimeError('%s is missing: the C-extension codec cannot '
+                           'build' % (py_h,))
+    with concurrent.futures.ThreadPoolExecutor(3) as pool:
+        kernels = pool.submit(W.load)
+        scanner = pool.submit(N.ensure_lib)
+        ext = pool.submit(N.ensure_ext)
+        kernels.result()
+        scanner, ext = scanner.result(), ext.result()
     K2.load()
-    _log('# phase 1 build: %.2f s' % (time.perf_counter() - t0))
+    if scanner is None or ext is None:
+        raise RuntimeError('host codec tier did not build (scanner %r, '
+                           'extension %r); see the compiler output above'
+                           % (scanner, ext))
+    _log('# phase 1 build: %.2f s; host codec tier: scanner %s (ABI %d), '
+         'extension %s %s (ABI %d), Python.h %s' % (
+             time.perf_counter() - t0, scanner._name,
+             scanner.zkwire_abi_version(), ext.__name__, ext.__file__,
+             ext.abi_version(), py_h))
     for line in W.build_report().splitlines():
         if ('registers' in line or 'spill' in line or 'smem' in line
                 or 'Compiling entry' in line):
@@ -463,34 +637,25 @@ def main() -> int:
         chunks.append([s[:a], s[a:b], s[b:]])
     wants = [_scalar_drain(PacketCodec, ch, m)
              for ch, m in zip(chunks, xmaps)]
-    conns = [StandIn(_codec(PacketCodec, m)) for m in xmaps]
     del db, dl, da, dal, dr, drl, got, want, st
-    torch.cuda.synchronize()
-    ing = FleetIngest(device='cuda', body_mode='host', bypass_bytes=0,
-                      warm='block', max_frames=FRAMES)
-    step_s: list = []
-    _timed(ing, step_s)
-    W.launches = K2.launches = 0
-    t0 = time.perf_counter()
-    asyncio.run(_serve(ing, conns, chunks))
-    wall = time.perf_counter() - t0
-    launches, k2_host = W.launches, K2.launches
-    if not (ing.ticks > 0 and launches == ing.ticks and k2_host == 0
-            and ing.ticks_scalar == 0 and ing.ticks_warming == 0):
-        raise AssertionError('ingest ticks %d (scalar %d, warming %d) vs '
-                             'K1 launches %d, K2 launches %d' % (
-                                 ing.ticks, ing.ticks_scalar,
-                                 ing.ticks_warming, launches, k2_host))
-    n_pkts = _check_fleet(conns, wants)
-    code = getattr(conns[-1].err, 'code', None)
-    tick_ms = ing.tick_hist.sum() / max(ing.tick_hist.count(), 1)
-    _log('# phase 4 on %s: %d connections, %d packets equal to the scalar '
-         'codec, bad prefix -> %s; %d device ticks = %d K1 launches; '
-         'mean tick %.3f ms, of which the device half (stage, copy, K1, '
-         'pack, readback) %.3f ms per tick: %s; phase wall %.2f s'
-         % (smi, len(conns), n_pkts, code, ing.ticks, launches, tick_ms,
-            sum(step_s) * 1e3 / len(step_s),
-            ' '.join('%.3f' % (x * 1e3) for x in step_s), wall))
+    host_runs = {}
+    for tier, use_native, freeze in (
+            ('Python codecs', False, False), ('C codecs', True, False),
+            ('C codecs, setup heap frozen', True, True)):
+        host_runs[tier] = _host_run(
+            FleetIngest, W, K2, PacketCodec, xmaps, chunks, wants,
+            use_native, freeze, tier, smi)
+    py_run, c_run = host_runs['Python codecs'], host_runs['C codecs']
+    launches = c_run['launches']
+    _log('# phase 4 side by side on %s: mean tick %.3f ms (Python codecs) '
+         'vs %.3f ms (C codecs), %.2fx, and %.3f ms (C codecs, setup heap '
+         'frozen); device half %.3f vs %.3f ms; host routing %.1f %% vs '
+         '%.1f %% of the tick' % (
+             smi, py_run['tick_ms'], c_run['tick_ms'],
+             py_run['tick_ms'] / c_run['tick_ms'],
+             host_runs['C codecs, setup heap frozen']['tick_ms'],
+             py_run['device_ms'], c_run['device_ms'],
+             100 * py_run['routing_share'], 100 * c_run['routing_share']))
 
     # -- 5. K2 against its plain version --
     t0 = time.perf_counter()
@@ -643,7 +808,7 @@ def main() -> int:
             n_byts, rb_mb, rb_ms, rb_mb / rb_ms))
 
     # -- 7. the device-body path: live fleet ingest --
-    conns = [StandIn(_codec(PacketCodec, m)) for m in xmaps]
+    conns = [StandIn(_codec(PacketCodec, m, True)) for m in xmaps]
     torch.cuda.synchronize()
     ing = FleetIngest(device='cuda', body_mode='device', bypass_bytes=0,
                       warm='block', max_frames=FRAMES)

@@ -192,3 +192,56 @@ def test_device_body_tick_launches_k2_only(cuda_device):
     want = cpu._run_step(cpu._warm_bucket(key), [(None, r) for r in rows])
     for a, b in zip(want, got):
         np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.cuda
+def test_host_body_tick_routes_through_c_codec_on_card(cuda_device):
+    """A CUDA host-body tick launches K1 once and, with ``use_native=True``
+    codecs, hands every stream's frame-complete slice to the C extension
+    (``_assemble_ext``), delivering what the pure-Python codec decodes."""
+    import asyncio
+
+    from zkstream_tpu_torch.io.ingest import FleetIngest
+    from zkstream_tpu_torch.protocol.framing import PacketCodec
+
+    buf, _lens, _slots, maps = corpus.fleet(B=12, seed=6, frames=16)
+
+    class Conn:
+        def __init__(self, xid_map, use_native):
+            self.codec = PacketCodec(use_native=use_native)
+            self.codec.handshaking = False
+            self.codec.xid_map.update(xid_map)
+            self.got, self.err = [], None
+
+        def is_in_state(self, state):
+            return state == 'connected' and self.err is None
+
+        def emit(self, _event, pkts, err):
+            self.got += pkts
+            self.err = err or self.err
+
+    want = []
+    for row, m in zip(buf, maps):
+        want.append(Conn(m, False).codec.decode(row.tobytes()))
+    ing = FleetIngest(device='cuda', body_mode='host', max_frames=16,
+                      bypass_bytes=0, warm='block')
+    calls = []
+    assemble_ext = ing._assemble_ext
+    ing._assemble_ext = lambda *a: calls.append(a[4]) or assemble_ext(*a)
+    conns = [Conn(m, True) for m in maps]
+    assert all(c.codec.ext is not None for c in conns)
+
+    async def serve():
+        for c, row in zip(conns, buf):
+            ing.register(c)
+            ing.feed(c, row.tobytes())
+        while ing._scheduled or any(b for _c, b in ing._slots.values()):
+            await asyncio.sleep(0.001)
+
+    before = TK2.launches, TW.launches
+    asyncio.run(serve())
+    assert ing.ticks == 1
+    assert (TK2.launches, TW.launches) == (before[0], before[1] + 1)
+    assert sorted(calls) == list(range(len(conns)))
+    for c, w in zip(conns, want):
+        assert c.err is None and c.got == w

@@ -30,15 +30,34 @@ def test_every_module_is_found():
                  'zkstream_tpu_torch.ops.full_scan',
                  'zkstream_tpu_torch.ops.replies',
                  'zkstream_tpu_torch.protocol.framing',
+                 'zkstream_tpu_torch.utils.native',
+                 'zkstream_tpu_torch.utils.metrics',
                  'zkstream_tpu_torch.corpus', 'zkstream_tpu_torch.entry'):
         assert name in mods
 
 
-@pytest.mark.parametrize('script', ['modules', 'chip_smoke'])
+@pytest.mark.parametrize('script', ['modules', 'chip_smoke', 'native'])
 def test_imports_load_no_jax(script):
     if script == 'modules':
         body = 'import importlib\n' + ''.join(
             'importlib.import_module(%r)\n' % m for m in _modules())
+    elif script == 'native':
+        # the host codec tier built, loaded and used: the C extension's
+        # setup pulls in the port's records and consts only
+        body = ('from zkstream_tpu_torch.utils import native\n'
+                'from zkstream_tpu_torch.protocol.framing import '
+                'PacketCodec\n'
+                'assert native.ensure_lib() is not None\n'
+                'ext = native.ensure_ext()\n'
+                "assert ext.__name__ == '_zkwire_ext_torch'\n"
+                'c = PacketCodec(use_native=True)\n'
+                'c.handshaking = False\n'
+                "c.xid_map[1] = 'DELETE'\n"
+                "assert c.decode(bytes.fromhex('00000010' '00000001'\n"
+                "                              '0000000000000009'\n"
+                "                              '00000000')) == [\n"
+                "    {'xid': 1, 'zxid': 9, 'err': 'OK', "
+                "'opcode': 'DELETE'}]\n")
     else:
         # chip_smoke's imports, without running it
         body = ('import importlib.util\n'

@@ -118,7 +118,7 @@ def _expected(chunks, maps):
     completed in its own chunk, as the scalar codec does)."""
     out = []
     for ch, m in zip(chunks, maps):
-        codec = _codec(PacketCodec, m)
+        codec = _codec(PacketCodec, m, use_native=False)
         pkts, code = [], None
         for piece in ch:
             try:
@@ -180,6 +180,163 @@ async def test_port_and_jax_ingest_deliver_equal_packets(seed, max_frames):
     assert port.ticks > 0 and port.ticks_scalar == 0
     if max_frames == 4:          # 16 frames a stream: re-ticks needed
         assert port.ticks >= 4
+
+
+def _count_assembly(ing) -> dict:
+    """Count, on ``ing``, the streams ``_assemble_stream`` is given with
+    frames and the calls of the C path ``_assemble_ext``.  Each stream
+    with frames takes either ``_assemble_ext`` or the Python loop, so
+    equal counts mean the loop never ran."""
+    counts = {'with_frames': 0, 'ext': 0}
+    assemble, assemble_ext = ing._assemble_stream, ing._assemble_ext
+
+    def counted_stream(conn, buf, st, bd, i, n):
+        counts['with_frames'] += n > 0
+        return assemble(conn, buf, st, bd, i, n)
+
+    def counted_ext(*args):
+        counts['ext'] += 1
+        return assemble_ext(*args)
+    ing._assemble_stream = counted_stream
+    ing._assemble_ext = counted_ext
+    return counts
+
+
+@pytest.mark.parametrize('use_native', [False, True])
+@pytest.mark.parametrize('max_frames', [4, 64])
+@pytest.mark.parametrize('seed', [0, 1])
+async def test_host_ingest_codec_tiers_match_jax(seed, max_frames,
+                                                 use_native):
+    """Host-body ingest with each codec tier: with C codecs the port
+    routes every stream with frames through ``_assemble_ext`` (and the
+    reference's through its own), without them through the Python
+    loop; both deliver exactly what the pure-Python scalar drain
+    does."""
+    streams, maps = _streams(seed)
+    chunks = _cut(streams, seed)
+    want = _expected(chunks, maps)
+    port = FleetIngest(device='cpu', body_mode='host',
+                       max_frames=max_frames, bypass_bytes=0, warm='block')
+    counts = _count_assembly(port)
+    got = await _serve(port, PacketCodec, chunks, maps,
+                       use_native=use_native)
+    ref = RefIngest(body_mode='host', max_frames=max_frames,
+                    bypass_bytes=0, warm='block', placement='host')
+    ref_counts = _count_assembly(ref)
+    ref_got = await _serve(ref, RefCodec, chunks, maps,
+                           use_native=use_native)
+    assert got == want
+    assert ref_got == want
+    assert want[-1][1] == 'BAD_LENGTH'
+    assert port.ticks > 0 and port.ticks_scalar == 0
+    assert counts['with_frames'] > 0
+    assert counts['ext'] == (counts['with_frames'] if use_native else 0)
+    assert ref_counts['ext'] == (ref_counts['with_frames'] if use_native
+                                 else 0)
+
+
+def _error_stream(case):
+    """Two good corpus frames as one chunk, then a chunk holding a
+    frame (or prefix) the codec rejects and the corpus frames after it;
+    with the xid map."""
+    buf, _lens, slots, maps = corpus.fleet(B=1, seed=4, frames=16)
+    raw = buf[0].tobytes()
+    head, tail = raw[:slots[2]['off']], raw[slots[2]['off']:]
+    xmap = dict(maps[0])
+    if case == 'bad_body':            # EXISTS reply cut inside its Stat
+        xmap[9001] = 'EXISTS'
+        body = struct.pack('>iqi', 9001, 5, 0) + b'\x00' * 4
+        bad = struct.pack('>i', len(body)) + body
+    elif case == 'unmatched_xid':
+        body = struct.pack('>iqi', 7777, 5, 0)
+        bad = struct.pack('>i', len(body)) + body
+    elif case == 'negative_prefix':
+        bad = struct.pack('>i', -9) + b'xx'
+    else:                             # over the protocol's frame cap
+        bad = struct.pack('>i', (16 << 20) + 1) + b'xx'
+    return [head, bad + tail, b''], xmap
+
+
+@pytest.mark.parametrize('case,code', [
+    ('bad_body', 'BAD_DECODE'), ('unmatched_xid', 'BAD_DECODE'),
+    ('negative_prefix', 'BAD_LENGTH'),
+    ('oversized_prefix', 'FRAME_TOO_LARGE')])
+async def test_c_codec_ingest_error_contracts(case, code):
+    """A stream that goes bad after good frames, through the port's and
+    the reference's host-body ingest with C codecs: the packets before
+    the fault and the error are exactly the scalar drain's.  An
+    oversized prefix surfaces FRAME_TOO_LARGE, as the reference raises
+    it (the device flags it bad; the codec re-types it)."""
+    chunks, xmap = _error_stream(case)
+    chunks = [chunks]
+    want = _expected(chunks, [xmap])
+    assert want[0][1] == code and want[0][0]
+    # one tick takes the whole stream: after the error the connection
+    # stops, and frames a later tick would have taken stay unread
+    port = FleetIngest(device='cpu', max_frames=64, bypass_bytes=0,
+                       warm='block')
+    got = await _serve(port, PacketCodec, chunks, [xmap], use_native=True)
+    ref = RefIngest(body_mode='host', max_frames=64, bypass_bytes=0,
+                    warm='block', placement='host')
+    ref_got = await _serve(ref, RefCodec, chunks, [xmap], use_native=True)
+    assert got == want
+    assert ref_got == want
+
+
+async def test_ext_slice_failure_wraps_as_bad_decode():
+    """An exception out of the extension becomes connection-level
+    BAD_DECODE carrying its cause, and the slot's buffer still shrinks
+    (the memoryviews are released before the caller's resize)."""
+    from zkstream_tpu_torch.protocol.framing import frame
+
+    class BrokenExt:
+        def decode_responses(self, buf, xid_map, max_packet):
+            raise MemoryError('injected')
+
+    ing = FleetIngest(device='cpu', max_frames=4, bypass_bytes=0,
+                      warm='block')
+    conn = _StandIn(_codec(PacketCodec, {}, use_native=False))
+    conn.codec._ext = BrokenExt()
+    ing.register(conn)
+    ing.feed(conn, frame(struct.pack('>iqi', -2, 0, 0)) + b'\x00\x00')
+    for _ in range(4):
+        await asyncio.sleep(0)
+    assert ing.ticks == 1
+    assert conn.got == []
+    assert conn.err.code == 'BAD_DECODE'
+    assert 'MemoryError' in str(conn.err)
+    assert isinstance(conn.err.__cause__, MemoryError)
+    assert bytes(ing._slots[id(conn)][1]) == b'\x00\x00'
+
+
+def test_bind_metrics_names_match_jax():
+    """``bind_metrics`` registers the reference's six gauges and its
+    tick histogram, under the same names and types, and refuses a
+    second binding without a prefix."""
+    from zkstream_tpu.utils.metrics import Collector as RefCollector
+    from zkstream_tpu_torch.utils.metrics import Collector
+
+    port, ref = Collector(), RefCollector()
+    ing = FleetIngest(device='cpu')
+    ing.bind_metrics(port)
+    RefIngest(placement='host').bind_metrics(ref)
+
+    def names(col):
+        return sorted(set(col._gauges) | set(col._histograms))
+    assert names(port) == names(ref)
+    assert len(port._gauges) == 6
+    assert ing.tick_hist is port.get_collector('zkstream_ingest_tick_ms')
+    assert [ln for ln in port.expose().splitlines()
+            if ln.startswith('# TYPE')] == \
+        [ln for ln in ref.expose().splitlines() if ln.startswith('# TYPE')]
+    ing.ticks = 3
+    assert 'zkstream_ingest_ticks 3' in port.expose()
+    with pytest.raises(ValueError, match='already registered'):
+        FleetIngest(device='cpu').bind_metrics(port)
+    FleetIngest(device='cpu').bind_metrics(port, prefix='b_')
+    assert 'b_zkstream_ingest_tick_ms' in names(port)
+    with pytest.raises(ValueError, match='as a gauge'):
+        port.histogram('zkstream_ingest_ticks')
 
 
 async def test_port_ingest_background_warm():

@@ -17,7 +17,11 @@ decode, with and without the reply bodies, and its runtime consumer:
     ops/frame_scan.py    frame cursor scan (plain torch)
     ops/headers.py       reply-header parse + per-stream reductions
     ops/bytesops.py      big-endian gathers, (hi, lo) u64 pairs
-    protocol/            the scalar codec (own copy of the reference's)
+    protocol/            the scalar codec (own copy of the reference's),
+      |                    with its C tiers when they are built
+    utils/native.py      builds and loads the host codec tier: the frame
+                           scanner (csrc/zkwire.cpp) and the C-extension
+                           codec (csrc/zkwire_ext.c), gcc into build/
     corpus.py            the deployed-shaped mixed-opcode corpus and
                            adversarial batches
     entry.py             entry(device='cuda') -> (fn, args)

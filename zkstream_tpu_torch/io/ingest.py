@@ -15,8 +15,11 @@ Two body modes:
 
 - ``'host'``: the tick is
   :func:`~zkstream_tpu_torch.ops.pipeline.wire_pipeline_step_auto`
-  (kernel K1 on a CUDA device) and reads back one packed int32 array;
-  bodies come from the scalar readers at the device-located offsets.
+  (kernel K1 on a CUDA device) and reads back one packed int32 array.
+  Where the connection's codec has the C-extension codec
+  (``codec.ext``), each stream's frame-complete slice goes to it in one
+  zero-copy call (:meth:`FleetIngest._assemble_ext`); otherwise bodies
+  come from the scalar readers at the device-located offsets.
 - ``'device'``: the tick is
   :func:`~zkstream_tpu_torch.ops.pipeline.wire_full_decode` (kernel K2
   on a CUDA device, K1 not launched), then the torch body parse
@@ -38,8 +41,6 @@ hooks, routing and packet assembly) is the reference's.  What differs:
   and pinned readback tensors — the counterpart of the reference's
   per-bucket XLA compile.  A warm failure raises on the next tick; it
   never latches the bucket onto the scalar drain.
-- The C-extension body decoder (``codec.ext``) is not ported: host
-  mode always assembles packets in Python.
 
 A connection needs three things: ``codec`` (a port ``PacketCodec``),
 ``is_in_state('connected')`` and ``emit('ingestDeliver', pkts, err)``.
@@ -57,6 +58,7 @@ import numpy as np
 import torch
 
 from ..protocol.consts import (
+    MAX_PACKET,
     REPLY_HDR,
     SPECIAL_XIDS,
     KeeperState,
@@ -400,6 +402,38 @@ class FleetIngest:
         if self._warm_queue is not None:
             self._warm_queue.put(None)
             self._warm_queue = None
+
+    def bind_metrics(self, collector, prefix: str = '') -> None:
+        """Expose this ingest's tick/frame counters as pull-model
+        gauges on ``collector`` (``utils.metrics.Collector``), and its
+        tick-duration histogram.  When several ingests share one
+        collector, give each a distinct ``prefix`` (name collisions
+        raise rather than silently dropping a registrant's series)."""
+        for name, attr, help_text in (
+                ('zkstream_ingest_ticks', 'ticks',
+                 'device ticks dispatched'),
+                ('zkstream_ingest_scalar_ticks', 'ticks_scalar',
+                 'ticks drained through the scalar codec (bypass or '
+                 'failed bucket)'),
+                ('zkstream_ingest_warming_ticks', 'ticks_warming',
+                 'ticks deferred to scalar while a shape bucket '
+                 'warmed'),
+                ('zkstream_ingest_frag_ticks', 'ticks_frag',
+                 'ticks routed to the scalar drain by the '
+                 'fragmentation guard (fleet large, ticks sparse)'),
+                ('zkstream_ingest_frames_routed', 'frames_routed',
+                 'frames delivered through the ingest'),
+                ('zkstream_ingest_body_fallbacks', 'body_fallbacks',
+                 'device-body frames that needed the scalar reader')):
+            collector.gauge(prefix + name,
+                            (lambda a=attr: getattr(self, a)),
+                            help_text)
+        # swap the standalone tick-duration histogram for a collector-
+        # registered one; samples observed before binding stay with the
+        # discarded instance (bind at setup time)
+        self.tick_hist = collector.histogram(
+            prefix + 'zkstream_ingest_tick_ms',
+            'Ingest tick (batched drain) duration, milliseconds')
 
     async def prewarm(self, n_streams: int,
                       nbytes: int | None = None) -> None:
@@ -819,6 +853,10 @@ class FleetIngest:
         packets decoded before it, like PacketCodec.decode."""
         if not n:
             return [], None
+        if bd is None:
+            ext = conn.codec.ext
+            if ext is not None:
+                return self._assemble_ext(conn, buf, st, ext, i)
         pkts: list[dict] = []
         xid_map = conn.codec.xid_map
         # bulk-convert this stream's header planes to Python ints once
@@ -856,6 +894,40 @@ class FleetIngest:
                     err.__cause__ = e
                     return pkts, err
             pkts.append(pkt)
+        return pkts, None
+
+    def _assemble_ext(self, conn, buf, st, ext, i: int):
+        """C fast path for ``body_mode='host'``: decode stream ``i``'s
+        device-delimited complete-frame slice in one zero-copy pass of
+        the C-extension codec — the same code the connection's scalar
+        drain runs, so parity is by construction.  The device scan
+        already proved the slice frame-complete and length-valid
+        (``bad`` streams took :meth:`_deliver_fallback`), so the cap
+        passed is the protocol's, not the codec's."""
+        resid = int(st.resid[i])
+        if not resid:
+            return [], None
+        mv = memoryview(buf)
+        sl = mv[:resid]
+        try:
+            pkts, _consumed, kind, msg = ext.decode_responses(
+                sl, conn.codec.xid_map, MAX_PACKET)
+        except Exception as e:
+            err = ZKProtocolError('BAD_DECODE',
+                'Failed to decode Response: %s: %s'
+                % (type(e).__name__, e))
+            err.__cause__ = e
+            return [], err
+        finally:
+            # Release the views NOW: an exception's traceback (kept
+            # alive via err.__cause__) can pin the call frame and with
+            # it the buffer export, and an exported bytearray cannot
+            # be resized — the caller's `del buf[:resid]` would raise
+            # BufferError and kill the whole tick.
+            sl.release()
+            mv.release()
+        if kind is not None:
+            return pkts, ZKProtocolError(kind, msg)
         return pkts, None
 
     def _read_body(self, pkt, buf, st, bd, i: int, f: int) -> None:

@@ -12,9 +12,12 @@ steady-state request/reply framing) and keeps the xid -> opcode map the
 reply decoder needs.  ``server=True`` flips the direction
 (reference: lib/zk-streams.js:28,70-71,84-85,128-129).
 
-This is the port's own copy of ``zkstream_tpu.protocol.framing`` with
-the pure-Python tiers only: the native scanner and the C-extension
-codec are not loaded here.
+This is the port's own copy of ``zkstream_tpu.protocol.framing``, with
+the same three tiers: the C-ABI frame scanner (``csrc/zkwire.cpp``) and
+the C-extension codec (``csrc/zkwire_ext.c``), both loaded by
+``utils/native.py``, over the pure-Python loop, which is the semantic
+spec and the fallback.  ``use_native=None`` auto-detects (never blocks
+on a build), ``True`` requires the C tiers, ``False`` forces Python.
 """
 
 from __future__ import annotations
@@ -59,23 +62,45 @@ def resolve_frame_cap(arg: int | None) -> int:
 
 class FrameDecoder:
     """Incremental splitter of a byte stream into length-prefixed
-    frames."""
+    frames.
 
-    __slots__ = ('_buf', '_max_frame')
+    When the native scanner is available the scan runs in C++; the
+    pure-Python loop is the always-present fallback and the semantic
+    spec — the two are A/B-tested equivalent in
+    tests/test_torch_native.py.  ``use_native=None`` auto-detects;
+    True/False force a path (tests, benchmarks).
+    """
 
-    def __init__(self, max_frame: int | None = None) -> None:
+    __slots__ = ('_buf', '_scanner', '_max_frame')
+
+    def __init__(self, use_native: bool | None = None,
+                 max_frame: int | None = None) -> None:
         self._buf = bytearray()
         #: Inbound frame cap, checked against the 4-byte prefix BEFORE
         #: any body byte is buffered — an oversized prefix raises the
         #: typed :class:`ZKFrameTooLargeError` instead of making the
         #: peer accumulate up to the prefix's claim.
         self._max_frame = resolve_frame_cap(max_frame)
+        self._scanner = None
+        if use_native is not False:
+            from ..utils import native
+            # auto mode (None) must never block the event loop: it
+            # binds only an already-built artifact (the build proceeds
+            # on a background thread for later connections).  Forced
+            # mode (True, tests/tools) builds synchronously.
+            lib = native.ensure_lib() if use_native else native.get_lib()
+            if lib is not None:
+                self._scanner = native.NativeFrameScanner(lib)
+            elif use_native is True:
+                raise RuntimeError('native codec unavailable')
 
     def feed(self, chunk: bytes) -> list[bytes]:
         """Absorb ``chunk``; return every complete frame body now
         available.  Raises ZKProtocolError('BAD_LENGTH') on a negative or
         oversized length prefix (reference: lib/zk-streams.js:47-53)."""
         self._buf += chunk
+        if self._scanner is not None:
+            return self._feed_native()
         frames: list[bytes] = []
         off = 0
         try:
@@ -93,6 +118,27 @@ class FrameDecoder:
         finally:
             if off:
                 del self._buf[:off]
+        return frames
+
+    def _feed_native(self) -> list[bytes]:
+        """Native scan over the accumulated buffer (zero-copy: the
+        scanner reads the bytearray in place).  Matches the Python loop
+        exactly, including the BAD_LENGTH contract: complete frames
+        before an invalid prefix are consumed-and-discarded and the
+        buffer is left positioned at the offending prefix."""
+        spans, resid, bad_at = self._scanner.scan(self._buf,
+                                                  self._max_frame)
+        if bad_at is not None:
+            if bad_at:
+                del self._buf[:bad_at]
+            (ln,) = _LEN.unpack_from(self._buf, 0)
+            if ln < 0:
+                raise ZKProtocolError('BAD_LENGTH',
+                    'Invalid ZK packet length %d' % (ln,))
+            raise ZKFrameTooLargeError(ln, self._max_frame)
+        frames = [bytes(self._buf[s:s + z]) for s, z in spans]
+        if resid:
+            del self._buf[:resid]
         return frames
 
     def pending(self) -> int:
@@ -126,22 +172,55 @@ class PacketCodec:
     """
 
     def __init__(self, server: bool = False,
+                 use_native: bool | None = None,
                  max_frame: int | None = None):
-        self._decoder = FrameDecoder(max_frame=max_frame)
+        self._decoder = FrameDecoder(use_native=use_native,
+                                     max_frame=max_frame)
+        #: The resolved inbound frame cap: one value drives all three
+        #: decode tiers (scalar loop, native scanner, C-extension
+        #: batch decode), so the rejection boundary cannot fork.
         self._max_frame = self._decoder._max_frame
         self._server = server
         self.handshaking = True
         #: xid -> opcode for replies in flight
         #: (reference: lib/zk-streams.js:145, connection-fsm.js:74).
         self.xid_map: dict[int, str] = {}
-        # Single-pass struct-batched encode tier
-        # (protocol/fastencode.py); the JuteWriter walk below stays the
+        # The C-extension codec covers both steady-state receive
+        # directions — replies (client) and requests (server); only the
+        # handshake exchange stays in Python.  Best-effort: an absent
+        # extension degrades to the scalar path.
+        self._ext = None
+        if use_native is not False:
+            from ..utils import native
+            self._ext = (native.ensure_ext() if use_native
+                         else native.get_ext())
+        # Middle encode tier: single-pass struct-batched Python
+        # (protocol/fastencode.py).  Runs when the C encoder is absent
+        # or declines a shape; the JuteWriter walk below stays the
         # spec and the last resort.
         self._fast = (None if os.environ.get('ZKSTREAM_NO_FASTENC')
                       == '1' else FastEncoder())
 
+    @property
+    def ext(self):
+        """The bound C-extension codec (or None) — exposed for the
+        fleet ingest's zero-copy slice-decode fast path, which must
+        honor this connection's codec selection."""
+        return self._ext
+
     def encode(self, pkt: dict) -> bytes:
         """Encode one outgoing packet to framed wire bytes."""
+        if self._ext is not None and not self.handshaking:
+            # best-effort C encode: None means "shape the C side does
+            # not handle" (rare opcodes, out-of-range fields) — the
+            # Python encoders below are the spec and raise their own
+            # validation errors; byte equality is A/B-tested.
+            data = (self._ext.encode_response(pkt) if self._server
+                    else self._ext.encode_request(pkt))
+            if data is not None:
+                if not self._server:
+                    self.xid_map[pkt['xid']] = pkt['opcode']
+                return data
         if self._fast is not None and not self.handshaking:
             data = (self._fast.encode_response(pkt) if self._server
                     else self._fast.encode_request(pkt))
@@ -180,7 +259,15 @@ class PacketCodec:
         to the error as ``err.packets`` so the caller can still deliver
         them.
         """
-        pkts: list[dict] = []
+        if self._ext is not None and not self.handshaking:
+            return self._decode_ext(chunk)
+        return self._decode_scalar(chunk, [])
+
+    def _decode_scalar(self, chunk: bytes,
+                       pkts: list[dict]) -> list[dict]:
+        """The pure-Python decode loop, appending into ``pkts`` (the
+        spec tier; also the continuation the extension path hands the
+        buffer to when it punts an opcode it carries no layout for)."""
         for body in self._decoder.feed(chunk):
             r = JuteReader(body)
             try:
@@ -207,4 +294,56 @@ class PacketCodec:
                 err.packets = pkts
                 raise err
             pkts.append(pkt)
+        return pkts
+
+    def _decode_ext(self, chunk: bytes) -> list[dict]:
+        """Steady-state receive via the C extension: framing + body
+        decode in one native pass over the accumulation buffer.  Shares
+        the FrameDecoder's buffer so handing a connection between paths
+        (handshake -> steady state, ingest take/restore_pending) stays
+        seamless; error semantics mirror the Python path (A/B-tested in
+        tests/test_torch_native_ext.py)."""
+        buf = self._decoder._buf
+        buf += chunk
+        try:
+            if self._server:
+                pkts, consumed, kind, msg = self._ext.decode_requests(
+                    buf, self._max_frame)
+            else:
+                pkts, consumed, kind, msg = self._ext.decode_responses(
+                    buf, self.xid_map, self._max_frame)
+        except Exception as e:
+            # Parity with the scalar path: ANY decode-side exception
+            # (e.g. MemoryError) surfaces as connection-fatal
+            # BAD_DECODE, never as a raw exception.
+            err = ZKProtocolError('BAD_DECODE',
+                'Failed to decode %s: %s: %s'
+                % ('Request' if self._server else 'Response',
+                   type(e).__name__, e))
+            err.__cause__ = e
+            err.packets = []
+            raise err
+        if consumed:
+            del buf[:consumed]
+        if kind == 'UNSUPPORTED':
+            # the head of the buffer is a complete frame whose opcode
+            # the C tier carries no layout for: the spec tier takes over
+            # from here — it decodes the frame (or raises the spec's own
+            # precise error) and everything behind it in this chunk,
+            # with the scalar path's exact buffer and error semantics;
+            # the next chunk re-enters the C tier
+            return self._decode_scalar(b'', pkts)
+        if kind is not None:
+            if kind == 'BAD_LENGTH' and len(buf) >= 4:
+                # scalar parity: the buffer is positioned at the
+                # offending prefix — a non-negative over-cap length is
+                # the typed frame-size rejection, not a corrupt prefix
+                (ln,) = _LEN.unpack_from(buf, 0)
+                if ln > self._max_frame and ln >= 0:
+                    err = ZKFrameTooLargeError(ln, self._max_frame)
+                    err.packets = pkts
+                    raise err
+            err = ZKProtocolError(kind, msg)
+            err.packets = pkts
+            raise err
         return pkts

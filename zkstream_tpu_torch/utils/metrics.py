@@ -1,6 +1,8 @@
-"""Prometheus-style latency histogram (the port's copy of
-``zkstream_tpu.utils.metrics.Histogram``, the one metric type the
-fleet ingest owns: ``FleetIngest.tick_hist``)."""
+"""Prometheus-style metrics: the port's copy of the parts of
+``zkstream_tpu.utils.metrics`` the fleet ingest uses — the latency
+``Histogram`` (``FleetIngest.tick_hist``), the pull-model ``Gauge`` and
+the ``Collector`` that ``FleetIngest.bind_metrics`` registers them on.
+"""
 
 from __future__ import annotations
 
@@ -123,3 +125,91 @@ class Histogram:
             lines.append('%s_count%s %d' % (self.name,
                                             _render_labels(key), cum))
         return '\n'.join(lines)
+
+
+class Gauge:
+    """A pull-model gauge: the value is read from a callback at
+    exposition time — zero hot-path cost for instrumented components
+    (the fleet ingest binds its tick/frame counters this way)."""
+
+    def __init__(self, name: str, fn, help_text: str = ''):
+        self.name = name
+        self.help = help_text
+        self._fn = fn
+
+    def expose(self) -> str:
+        lines = []
+        if self.help:
+            lines.append('# HELP %s %s' % (self.name, self.help))
+        lines.append('# TYPE %s gauge' % (self.name,))
+        try:
+            val = self._fn()
+        except Exception:  # a dead callback must not sink exposition
+            val = float('nan')
+        lines.append('%s %s' % (self.name, val))
+        return '\n'.join(lines)
+
+
+class Collector:
+    """Registry of gauges and histograms with one text exposition."""
+
+    def __init__(self) -> None:
+        self._gauges: dict[str, Gauge] = {}
+        self._histograms: dict[str, Histogram] = {}
+
+    def _check_collision(self, name: str, kind: str) -> None:
+        for other_kind, table in (('gauge', self._gauges),
+                                  ('histogram', self._histograms)):
+            if kind != other_kind and name in table:
+                raise ValueError(
+                    'metric %r already registered as a %s'
+                    % (name, other_kind))
+
+    def histogram(self, name: str, help_text: str = '',
+                  buckets=DEFAULT_BUCKETS) -> Histogram:
+        """Create (or fetch) a histogram by name — idempotent, so shared
+        collectors register a series once.  Re-registering with
+        DIFFERENT bucket bounds raises: silently handing back the first
+        registrant's buckets would mis-bucket the second registrant's
+        observations with no warning."""
+        self._check_collision(name, 'histogram')
+        existing = self._histograms.get(name)
+        if existing is not None:
+            want = tuple(sorted(float(b) for b in buckets))
+            if want != existing.buckets:
+                raise ValueError(
+                    'histogram %r already registered with buckets %r '
+                    '(requested %r); use a distinct name/prefix'
+                    % (name, existing.buckets, want))
+            return existing
+        self._histograms[name] = Histogram(name, help_text, buckets)
+        return self._histograms[name]
+
+    def gauge(self, name: str, fn, help_text: str = '') -> Gauge:
+        """Register a callback-backed gauge.  Gauges are never
+        idempotent — a same-name registration (of any kind) raises:
+        silently replacing would drop the first registrant's series
+        (bind two instrumented components under distinct prefixes
+        instead)."""
+        self._check_collision(name, 'gauge')
+        if name in self._gauges:
+            raise ValueError(
+                'metric %r already registered; use a distinct '
+                'name/prefix' % (name,))
+        self._gauges[name] = Gauge(name, fn, help_text)
+        return self._gauges[name]
+
+    def get_collector(self, name: str):
+        if name in self._histograms:
+            return self._histograms[name]
+        if name in self._gauges:
+            return self._gauges[name]
+        registered = sorted(list(self._gauges) + list(self._histograms))
+        raise ValueError(
+            'no metric %r registered; registered names: %s'
+            % (name, ', '.join(registered) or '(none)'))
+
+    def expose(self) -> str:
+        parts = [h.expose() for h in self._histograms.values()]
+        parts += [g.expose() for g in self._gauges.values()]
+        return '\n'.join(parts)

@@ -7,7 +7,8 @@ Run from the repository root on a machine with an H100:
 
 Phases (any failure exits non-zero; nothing is caught):
 
-1. Build kernels K1 and K2 (one library from
+1. Build kernels K1 and K2 and the sequence-parallel scan's chunk walk
+   (one library from
    ``zkstream_tpu_torch/csrc/wire_scan.cu``) with nvcc for sm_90a into
    ``build/`` and print ptxas's register/spill/shared-memory report of
    each, each kernel's launch geometry at the bench shape, and the K2
@@ -83,6 +84,41 @@ Phases (any failure exits non-zero; nothing is caught):
    launches (counted from 0 just before this phase) must equal the
    device ticks, K1 must not launch, and no body may fall back to the
    scalar reader (the corpus fits the default widths).
+8. The sharded tick decode (parallel/sharded.py): ``sharded_wire_step``
+   on the corpus over ``make_mesh()`` (every card of the machine: dp=1
+   here) and over ``make_mesh(dp=4, devices=[cuda:0] * 4)`` (four
+   logical shards on the one card).  Each must equal
+   ``wire_pipeline_step_auto`` on the whole batch field for field
+   (tolerance 0), its globals the unsigned-64 max and sums of that
+   result, and K1's launches the shard count; ``sharded_wire_roundtrip``
+   at dp=4 must return every encoded frame.  Both sharded steps are
+   timed beside the single-device one.
+9. The sequence-parallel scan (parallel/seqscan.py) of one stream, the
+   valid bytes of the corpus's first 1,024 rows concatenated (65,536
+   frames), at sp=1 and sp=4 on the card: the mask must equal
+   ``frame_starts_pointer_doubling`` and the plain cursor walk, the
+   chunk-walk kernel must equal its plain version on every chunk
+   (tolerance 0), and the chunk-walk launches (counted from 0 just
+   before the sp=4 scan) must be one a shard a ring step.  Also a
+   stream whose one frame spans whole shards and one with a bad
+   prefix.  The scan and one whole-stream walk (warm and with the
+   stream evicted from L2) are timed.
+10. ``MeshFleetIngest`` over ``make_mesh(dp=4, devices=[cuda:0] * 4)``
+   serves phase 4's 1,025 connections twice: host bodies with C codecs
+   (K1 launches = 4 x device ticks, no K2) and device bodies (K2
+   launches = 4 x device ticks, no K1, no body fallback).  Every packet
+   must equal the scalar drain's and the bad prefix give BAD_LENGTH;
+   each tick's ``global_stats['total_frames']`` must equal the frames
+   of the rows it routed, and ``fleet_max_zxid`` the largest zxid among
+   the delivered replies.
+11. ``MultihostFleetIngest`` over a one-rank NCCL process group
+   (``parallel.initialize`` on 127.0.0.1 and a free port; the backend
+   is printed and must be ``nccl``): the same connections on a fixed
+   5 ms cadence, ``local_rows`` = 1,028 (a multiple of dp = 4),
+   ``stream_len`` 16384 (more than a corpus row).  ``stop(after_ticks=N)``
+   must leave ``launch_count == tick_count == N``, K1 launched 4 x N
+   times, and every packet equal.  The group is destroyed before the
+   report.
 
 The last lines are the card's name and power limit, one JSON object of
 kernels, and ``{"ok": true, "device": {...}}``.  Without a CUDA device
@@ -97,6 +133,7 @@ import concurrent.futures
 import gc
 import json
 import os
+import struct
 import subprocess
 import sys
 import sysconfig
@@ -426,6 +463,178 @@ def _host_run(FleetIngest, W, K2, PacketCodec, xmaps, chunks, wants,
             'routing_share': 1.0 - dev_ms / tick_ms, 'launches': launches}
 
 
+def _count_mesh_ticks(ing) -> list:
+    """Record, per device tick of a mesh ingest, ``[the fleet-global
+    frame total, the frames of the rows the tick routed]``."""
+    seen = []
+    unpack, route = ing._unpack, ing._route_stream
+
+    def counted_unpack(ints, byts):
+        out = unpack(ints, byts)
+        seen.append([ing.global_stats['total_frames'], 0])
+        return out
+
+    def counted_route(conn, buf, st, bd, i):
+        seen[-1][1] += int(st.n_frames[i])
+        return route(conn, buf, st, bd, i)
+
+    ing._unpack, ing._route_stream = counted_unpack, counted_route
+    return seen
+
+
+def _check_globals(ing, seen, conns, what: str) -> None:
+    """Each device tick's fleet total equals the frames of the rows it
+    routed, and the fleet max the largest delivered reply zxid."""
+    if not seen or any(g != r for g, r in seen):
+        raise AssertionError('%s: per-tick global totals vs routed frames %s'
+                             % (what, seen))
+    best = max(p['zxid'] for c in conns for p in c.got if p['xid'] >= 0)
+    if ing.fleet_max_zxid != best:
+        raise AssertionError('%s: fleet_max_zxid %d, largest delivered '
+                             'reply zxid %d' % (what, ing.fleet_max_zxid,
+                                                best))
+
+
+def _mesh_run(PAR, W, K2, PacketCodec, xmaps, chunks, wants, mesh,
+              body_mode: str, smi: str) -> dict:
+    """Phase 10: serve the fleet once through ``MeshFleetIngest`` on
+    ``mesh`` (C codecs) and check packets, launches and globals."""
+    import torch
+
+    conns = [StandIn(_codec(PacketCodec, m, True)) for m in xmaps]
+    torch.cuda.synchronize()
+    ing = PAR.MeshFleetIngest(mesh=mesh, body_mode=body_mode, warm='block',
+                              max_frames=FRAMES)
+    step_s: list = []
+    _timed(ing, step_s)
+    seen = _count_mesh_ticks(ing)
+    dp = mesh.shape['dp']
+    W.launches = K2.launches = 0
+    t0 = time.perf_counter()
+    asyncio.run(_serve(ing, conns, chunks))
+    wall = time.perf_counter() - t0
+    k1, k2 = W.launches, K2.launches
+    want = (0, dp * ing.ticks) if body_mode == 'device' else \
+        (dp * ing.ticks, 0)
+    if not (ing.ticks > 0 and (k1, k2) == want and ing.ticks_scalar == 0
+            and ing.ticks_warming == 0):
+        raise AssertionError(
+            'mesh %s: %d device ticks (scalar %d, warming %d) over dp=%d, '
+            'K1 %d and K2 %d launches' % (body_mode, ing.ticks,
+                                          ing.ticks_scalar, ing.ticks_warming,
+                                          dp, k1, k2))
+    if body_mode == 'device' and ing.body_fallbacks:
+        raise AssertionError('mesh: %d bodies fell back to the scalar '
+                             'reader' % ing.body_fallbacks)
+    n_pkts = _check_fleet(conns, wants)
+    _check_globals(ing, seen, conns, 'mesh %s' % body_mode)
+    tick_ms = ing.tick_hist.sum() / max(ing.tick_hist.count(), 1)
+    dev_ms = sum(step_s) * 1e3 / len(step_s)
+    _log('# phase 10 (%s bodies, dp=%d on one card) on %s: %d connections, '
+         '%d packets equal to the scalar drain, bad prefix -> %s, '
+         'body_fallbacks %d; %d device ticks, K1 %d and K2 %d launches; '
+         'per-tick global frames %s = routed rows\' frames; fleet max zxid '
+         '%d; mean tick %.3f ms, of which the sharded device half (stage, '
+         'copies, %d kernels, reductions, pack, readback) %.3f ms: %s; '
+         'phase wall %.2f s'
+         % (body_mode, dp, smi, len(conns), n_pkts,
+            getattr(conns[-1].err, 'code', None), ing.body_fallbacks,
+            ing.ticks, k1, k2, [g for g, _r in seen], ing.fleet_max_zxid,
+            tick_ms, dp, dev_ms, ' '.join('%.3f' % (x * 1e3) for x in step_s),
+            wall))
+    return {'tick_ms': tick_ms, 'device_ms': dev_ms, 'k1': k1, 'k2': k2,
+            'ticks': ing.ticks}
+
+
+def _multihost_run(PAR, W, K2, PacketCodec, xmaps, chunks, wants, dev,
+                   smi: str) -> dict:
+    """Phase 11: ``MultihostFleetIngest`` over a one-rank NCCL group."""
+    import socket
+
+    import torch
+    import torch.distributed as dist
+
+    with socket.socket() as s:
+        s.bind(('127.0.0.1', 0))
+        port = s.getsockname()[1]
+    t0 = time.perf_counter()
+    PAR.initialize('127.0.0.1:%d' % port, num_processes=1, process_id=0)
+    init_s = time.perf_counter() - t0
+    try:
+        backend = dist.get_backend()
+        if backend != 'nccl':
+            raise AssertionError('process group backend %r, not nccl'
+                                 % (backend,))
+        mesh = PAR.make_mesh(dp=4, devices=[dev] * 4)
+        if mesh.group is None or mesh.world_size != 1:
+            raise AssertionError('the mesh does not span the group')
+        rows = -(-len(xmaps) // 4) * 4
+        proxy = PAR.MultihostFleetIngest(
+            mesh=mesh, local_rows=rows, stream_len=16384,
+            tick_interval=0.005, body_mode='host', max_frames=FRAMES)
+        conns = [StandIn(_codec(PacketCodec, m, True)) for m in xmaps]
+        seen = _count_mesh_ticks(proxy)
+        tick_s: list = []
+        mh_tick = proxy._mh_tick
+
+        def timed_tick():
+            t = time.perf_counter()
+            mh_tick()
+            tick_s.append(time.perf_counter() - t)
+
+        proxy._mh_tick = timed_tick
+
+        async def run():
+            proxy.warmup_tick()
+            proxy.start()
+            for c in conns:
+                proxy.register(c)
+            for k in range(3):
+                for conn, ch in zip(conns, chunks):
+                    if ch[k]:
+                        proxy.feed(conn, ch[k])
+                await asyncio.sleep(0.01)
+            loop = asyncio.get_running_loop()
+            deadline = loop.time() + 300.0
+            while any(b for _c, b in proxy._slots.values()):
+                if loop.time() > deadline:
+                    raise AssertionError('proxy did not drain in 300 s')
+                await asyncio.sleep(0.005)
+            stop_at = proxy.tick_count + 2
+            await proxy.stop(after_ticks=stop_at)
+            return stop_at
+
+        torch.cuda.synchronize()
+        W.launches = K2.launches = 0
+        t0 = time.perf_counter()
+        stop_at = asyncio.run(run())
+        wall = time.perf_counter() - t0
+        k1, k2 = W.launches, K2.launches
+        if not (proxy.launch_count == proxy.tick_count == stop_at
+                and k1 == 4 * stop_at and k2 == 0 and proxy.ticks > 0):
+            raise AssertionError(
+                'multihost: launch_count %d, tick_count %d, stop %d, K1 %d, '
+                'K2 %d launches' % (proxy.launch_count, proxy.tick_count,
+                                    stop_at, k1, k2))
+        n_pkts = _check_fleet(conns, wants)
+        _check_globals(proxy, seen, conns, 'multihost')
+    finally:
+        dist.destroy_process_group()
+    _log('# phase 11 on %s: process group backend %s (world 1, init %.2f '
+         's); mesh dp=4 on one card; %d connections in %d slots, %d packets '
+         'equal to the scalar drain, bad prefix -> %s; stop(after_ticks=%d) '
+         '-> launch_count %d = tick_count %d (%d with frames), K1 %d '
+         'launches = 4 x %d, K2 %d; fleet max zxid %d; tick %.3f ms mean '
+         '(%.3f ms max) on the 5 ms cadence; phase wall %.2f s; group '
+         'destroyed'
+         % (smi, backend, init_s, len(conns), rows, n_pkts,
+            getattr(conns[-1].err, 'code', None), stop_at,
+            proxy.launch_count, proxy.tick_count, proxy.ticks, k1, stop_at,
+            k2, proxy.fleet_max_zxid, sum(tick_s) * 1e3 / len(tick_s),
+            max(tick_s) * 1e3, wall))
+    return {'k1': k1, 'ticks': proxy.tick_count, 'backend': backend}
+
+
 def main() -> int:
     import torch
 
@@ -434,17 +643,19 @@ def main() -> int:
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from zkstream_tpu_torch import corpus
+    from zkstream_tpu_torch import parallel as PAR
     from zkstream_tpu_torch.entry import entry
     from zkstream_tpu_torch.io.ingest import FleetIngest
     from zkstream_tpu_torch.ops import full_scan as K2
     from zkstream_tpu_torch.ops import pipeline as P
     from zkstream_tpu_torch.ops import replies as R
+    from zkstream_tpu_torch.ops import seq_walk as SW
     from zkstream_tpu_torch.ops import wire_scan as W
     from zkstream_tpu_torch.protocol.framing import PacketCodec
     from zkstream_tpu_torch.utils import native as N
 
     t_start = time.perf_counter()
-    dev = torch.device('cuda')
+    dev = P.resolve_device('cuda')
     smi = subprocess.run(
         ['nvidia-smi', '--query-gpu=name,power.limit',
          '--format=csv,noheader'], capture_output=True, text=True,
@@ -466,6 +677,7 @@ def main() -> int:
         kernels.result()
         scanner, ext = scanner.result(), ext.result()
     K2.load()
+    SW.load()
     if scanner is None or ext is None:
         raise RuntimeError('host codec tier did not build (scanner %r, '
                            'extension %r); see the compiler output above'
@@ -840,6 +1052,215 @@ def main() -> int:
             sum(dstep_s) * 1e3 / len(dstep_s),
             ' '.join('%.3f' % (x * 1e3) for x in dstep_s), dwall))
 
+    # -- 8. the sharded tick decode --
+    from zkstream_tpu_torch.ops.bytesops import u64pair_reduce_max
+
+    t0 = time.perf_counter()
+    db, dl = P.batch_to_device(buf_np, lens_np, dev)
+    ref = P.wire_pipeline_step_auto(db, dl, max_frames=FRAMES)
+    rh, rl = u64pair_reduce_max(ref.max_zxid_hi, ref.max_zxid_lo)
+    want_g = [int(ref.n_frames.sum()), int(ref.n_notifications.sum()),
+              int(ref.n_errors.sum()), int(rh), int(rl)]
+    single_ms = _time_ms(
+        torch, lambda: P.wire_pipeline_step_auto(db, dl, max_frames=FRAMES),
+        20)
+    mesh4 = PAR.make_mesh(dp=4, devices=[dev] * 4)
+    sharded = {}
+    for name, mesh in (('make_mesh()', PAR.make_mesh()),
+                       ('dp=4 on one card', mesh4)):
+        step = PAR.sharded_wire_step(mesh, max_frames=FRAMES)
+        torch.cuda.synchronize()
+        W.launches = 0
+        st8, g8 = step(db, dl)
+        torch.cuda.synchronize()
+        dp = mesh.shape['dp']
+        if W.launches != dp:
+            raise AssertionError('%s: %d K1 launches for %d shards'
+                                 % (name, W.launches, dp))
+        for f in ref._fields:
+            if not torch.equal(getattr(ref, f), getattr(st8, f)):
+                raise AssertionError('%s: sharded WireStats.%s differs from '
+                                     'the single-device step' % (name, f))
+        if [int(x) for x in g8] != want_g:
+            raise AssertionError('%s: globals %s, single-device reductions %s'
+                                 % (name, [int(x) for x in g8], want_g))
+        sharded[name] = (dp, W.launches,
+                         _time_ms(torch, lambda: step(db, dl), 20))
+    del st8, g8, ref
+    rng8 = np.random.RandomState(SEED + 8)
+
+    def plane(lo, hi):
+        return torch.from_numpy(rng8.randint(
+            lo, hi, (B_CORPUS, FRAMES)).astype(np.int32)).to(dev)
+    _rst, rtotal = PAR.sharded_wire_roundtrip(mesh4, out_len=FRAMES * 52)(
+        plane(1, 1 << 20), plane(0, 1 << 16), plane(0, 1 << 20),
+        torch.zeros((B_CORPUS, FRAMES), dtype=torch.int32, device=dev),
+        plane(16, 48))
+    if int(rtotal) != B_CORPUS * FRAMES:
+        raise AssertionError('roundtrip: %d of %d frames'
+                             % (int(rtotal), B_CORPUS * FRAMES))
+    del _rst, db, dl
+    _log('# phase 8 on %s: sharded_wire_step == wire_pipeline_step_auto '
+         'field for field on %d x %d, globals %s == its reductions; %s; '
+         'single-device step %.4f ms; sharded_wire_roundtrip at dp=4: %d '
+         'frames = B x F (%.2f s)'
+         % (smi, B_CORPUS, FRAMES, want_g,
+            '; '.join('%s: dp=%d, %d K1 launches, %.4f ms a step'
+                      % (k, v[0], v[1], v[2]) for k, v in sharded.items()),
+            single_ms, int(rtotal), time.perf_counter() - t0))
+
+    # -- 9. the sequence-parallel scan --
+    from zkstream_tpu_torch.ops.frame_scan import (
+        frame_starts_pointer_doubling)
+
+    t0 = time.perf_counter()
+
+    def padded(s: bytes, sp: int):
+        N = -(-(len(s) + 8) // (4 * sp)) * 4 * sp
+        pad = np.zeros(N, np.uint8)
+        pad[:len(s)] = np.frombuffer(s, np.uint8)
+        return pad
+
+    sw_err = [0]
+
+    def chunk_check(pad, sp: int, n: int) -> int:
+        """Each chunk's kernel walk from its true entry == the plain
+        walk (the largest difference of exit, flags and mask kept in
+        ``sw_err``); returns the frames found."""
+        C, entry, found = len(pad) // sp, 0, 0
+        for i in range(sp):
+            ext = np.concatenate([pad[i * C:(i + 1) * C],
+                                  pad[((i + 1) % sp) * C:][:4]])
+            end = min(i * C + C, n)
+            q, m, b = SW.walk_plain(torch.from_numpy(ext), i * C, end, n,
+                                    entry)
+            st = SW.new_state(C, dev)
+            SW.seq_walk(torch.from_numpy(ext).to(dev), i * C, end, n,
+                        torch.tensor(entry, dtype=torch.int32, device=dev),
+                        st)
+            e = max(abs(int(st.exit) - q), abs(int(st.valid) - 1),
+                    int(bool(st.bad) != b),
+                    int((st.mask.cpu() != m).sum()))
+            sw_err[0] = max(sw_err[0], e)
+            if e:
+                raise AssertionError('chunk walk %d of %d: kernel (%d, %s) '
+                                     'vs plain (%d, %s), max |d| %d' % (
+                                         i, sp, int(st.exit), bool(st.bad),
+                                         q, b, e))
+            entry = q
+            found += int(m.sum())
+        return found
+
+    def scan_check(s: bytes, sp: int, what: str):
+        """The sp scan of ``s`` on the card == the plain scan (CPU
+        shards) == pointer doubling, and each chunk's walk == plain."""
+        pad = padded(s, sp)
+        dpad = torch.from_numpy(pad).to(dev)
+        scan = PAR.seq_parallel_frame_scan(
+            PAR.make_mesh(dp=1, sp=sp, devices=[dev] * sp))
+        torch.cuda.synchronize()
+        SW.launches = 0
+        got = scan(dpad, len(s))
+        torch.cuda.synchronize()
+        launches = SW.launches
+        if launches != 1 + max(sp - 1, 1) * sp:
+            raise AssertionError('%s sp=%d: %d chunk-walk launches'
+                                 % (what, sp, launches))
+        want = PAR.seq_parallel_frame_scan(PAR.make_mesh(
+            dp=1, sp=sp, devices=['cpu'] * sp))(torch.from_numpy(pad), len(s))
+        dbl, dbad = frame_starts_pointer_doubling(dpad, len(s))
+        for a, b in zip(want, got):
+            if not torch.equal(a, b.cpu()):
+                raise AssertionError('%s sp=%d: scan differs from the plain '
+                                     'scan' % (what, sp))
+        if not (torch.equal(dbl.cpu(), want[0]) and bool(dbad) == bool(
+                want[2])):
+            raise AssertionError('%s sp=%d: scan differs from pointer '
+                                 'doubling' % (what, sp))
+        if chunk_check(pad, sp, len(s)) != int(want[1]):
+            raise AssertionError('%s sp=%d: chunk walks miscount' % (what,
+                                                                     sp))
+        return scan, dpad, got, launches
+
+    stream = b''.join(buf_np[i, :lens_np[i]].tobytes() for i in range(FLEET))
+    n9 = len(stream)
+    pad1 = padded(stream, 1)
+    tp = time.perf_counter()
+    q_full, mask_full, bad_full = SW.walk_plain(
+        torch.from_numpy(np.concatenate([pad1, pad1[:4]])), 0, n9, n9, 0)
+    plain_walk_ms = (time.perf_counter() - tp) * 1e3
+    frames9 = int(mask_full.sum())
+    if frames9 != FLEET * FRAMES or bad_full or q_full != n9:
+        raise AssertionError('plain walk: %d frames, bad %s, exit %d'
+                             % (frames9, bad_full, q_full))
+    scans = {}
+    for sp in (1, 4):
+        scan, dpad, got, sp_launches = scan_check(stream, sp, 'corpus')
+        if int(got[1]) != frames9 or bool(got[2]) or not torch.equal(
+                got[0].cpu()[:n9], mask_full[:n9]):
+            raise AssertionError('sp=%d: the scan != the plain cursor walk'
+                                 % sp)
+        scan(dpad, n9)
+        scans[sp] = (sp_launches,
+                     _time_ms(torch, lambda: scan(dpad, n9), 3))
+        del dpad, got
+    sw_launches = scans[4][0]
+    body = struct.pack('>iqi', 5, 42, 0) + bytes(range(256)) * 8
+    span = (struct.pack('>i', len(body)) + body + struct.pack('>i', 16)
+            + struct.pack('>iqi', 6, 43, 0))
+    _sc, _d, sgot, _l = scan_check(span, 4, 'spanning')
+    bad9 = stream[:slots[3]['off']] + struct.pack('>i', -7) + stream[:4096]
+    _sc, _d, bgot, _l = scan_check(bad9, 4, 'bad prefix')
+    if int(sgot[1]) != 2 or bool(sgot[2]) or int(bgot[1]) != 3 \
+            or not bool(bgot[2]):
+        raise AssertionError('spanning / bad-prefix streams: %d frames (bad '
+                             '%s), %d frames (bad %s)' % (
+                                 int(sgot[1]), bool(sgot[2]), int(bgot[1]),
+                                 bool(bgot[2])))
+    # one whole-stream walk: warm, and with the stream evicted from L2
+    ext1 = torch.from_numpy(np.concatenate([pad1, pad1[:4]])).to(dev)
+    st1 = SW.new_state(len(pad1), dev)
+    zero = torch.zeros((), dtype=torch.int32, device=dev)
+
+    def walk():
+        st1.valid.zero_()
+        SW.seq_walk(ext1, 0, n9, n9, zero, st1)
+
+    walk()
+    if not torch.equal(st1.mask.cpu()[:n9], mask_full[:n9]) \
+            or int(st1.exit) != q_full:
+        raise AssertionError('whole-stream kernel walk != plain walk')
+    walk_ms = _time_ms(torch, walk, 3)
+    walk_cold_ms = _cold_ms(torch, walk, 3)
+    walk_bound_b = SW.bound_bytes(frames9, len(pad1))
+    walk_bound_ms = walk_bound_b / HBM_BYTES_PER_S * 1e3
+    del ext1, st1
+    # the walk is one dependent round trip a frame and nothing else in
+    # flight: warm, each is an L2 hit; cold, a device-memory access
+    _log('# phase 9 on %s: one stream of %d bytes (%d frames); sp scan == '
+         'plain scan == pointer doubling == plain cursor walk, every chunk '
+         'walk == plain (tolerance 0), at sp=1 (%d launches) and sp=4 (%d '
+         'launches = 1 + 3 ring steps x 4 shards); spanning frame and bad '
+         'prefix at sp=4 too; scan %.3f ms (sp=1), %.3f ms (sp=4); one '
+         'whole-stream kernel walk %.3f ms warm (%.1f ns a frame), %.3f ms '
+         'with the stream evicted from L2 (%.1f ns a frame: one dependent '
+         'round trip a frame, its latency floor), plain walk on the host '
+         '%.1f ms; bound %.4f ms (%d bytes at 3.35 TB/s); K1\'s step on 256 '
+         'rows, for comparison, %.1f ns; %.2f s'
+         % (smi, n9, frames9, scans[1][0], sw_launches, scans[1][1],
+            scans[4][1], walk_ms, walk_ms * 1e6 / frames9, walk_cold_ms,
+            walk_cold_ms * 1e6 / frames9, plain_walk_ms, walk_bound_ms,
+            walk_bound_b, floor_ms * 1e6 / FRAMES, time.perf_counter() - t0))
+
+    # -- 10. MeshFleetIngest, four shards on the card --
+    mesh_runs = {
+        mode: _mesh_run(PAR, W, K2, PacketCodec, xmaps, chunks, wants,
+                        mesh4, mode, smi) for mode in ('host', 'device')}
+
+    # -- 11. MultihostFleetIngest over a one-rank NCCL group --
+    mh = _multihost_run(PAR, W, K2, PacketCodec, xmaps, chunks, wants, dev,
+                        smi)
+
     # -- report --
     kernels = [{
         'name': 'K1 wire_scan (frame scan + reply-header parse)',
@@ -859,6 +1280,11 @@ def main() -> int:
         'bucket': {'shape': [Bp, Lb], 'ms': k1b_ms, 'device_ms': k1b_dev,
                    'bound_ms': k1b_bound_ms,
                    'bound_share': k1b_bound_ms / k1b_ms},
+        'launches_by_path': {
+            'phase 4 FleetIngest, C codecs': launches,
+            'phase 8 sharded_wire_step dp=4': sharded['dp=4 on one card'][1],
+            'phase 10 MeshFleetIngest host bodies': mesh_runs['host']['k1'],
+            'phase 11 MultihostFleetIngest': mh['k1']},
     }, {
         'name': 'K2 full_scan (K1 + GET_DATA body words)',
         'route': 'cuda',
@@ -877,6 +1303,29 @@ def main() -> int:
         'bucket': {'shape': [Bp, Lb], 'ms': k2b_ms, 'device_ms': k2b_dev,
                    'bound_ms': k2b_bound_ms,
                    'bound_share': k2b_bound_ms / k2b_ms},
+        'launches_by_path': {
+            'phase 7 FleetIngest device bodies': k2_launches,
+            'phase 10 MeshFleetIngest device bodies':
+                mesh_runs['device']['k2']},
+    }, {
+        'name': 'seq_walk (the sequence-parallel scan\'s chunk walk)',
+        'route': 'cuda',
+        'source': 'zkstream_tpu_torch/csrc/wire_scan.cu',
+        'replaces': SW.REPLACES,
+        'launches': sw_launches,
+        'max_abs_err': sw_err[0],
+        'equal': sw_err[0] == 0,
+        'ms': walk_ms,
+        'cold_ms': walk_cold_ms,
+        'plain_ms': plain_walk_ms,
+        'plain_on': 'host CPU (the plain walk serves CPU tensors only)',
+        'bound_ms': walk_bound_ms,
+        'bound_by': 'bytes',
+        'bound_share': walk_bound_ms / walk_ms,
+        'ns_a_frame': walk_ms * 1e6 / frames9,
+        'cold_ns_a_frame': walk_cold_ms * 1e6 / frames9,
+        'library_ms': None,
+        'shape': {'bytes': n9, 'frames': frames9},
     }]
     _log('# total %.1f s' % (time.perf_counter() - t_start))
     print(smi)

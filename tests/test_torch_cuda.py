@@ -1,5 +1,6 @@
-"""Kernels K1 and K2 against their plain versions on a CUDA card, and
-the device-body tick on the card against the same tick on the CPU (no
+"""Kernels K1 and K2 and the chunk walk against their plain versions on
+a CUDA card, the mesh plane's sharded steps against the unsharded ones,
+and the ticks on the card against the same ticks on the CPU (no
 JAX here, so the file also runs where only the port is installed:
 ``python -m pytest --noconftest tests/test_torch_cuda.py``).  Every
 test is marked ``cuda`` and skips without a card; the decision is made
@@ -245,3 +246,117 @@ def test_host_body_tick_routes_through_c_codec_on_card(cuda_device):
     assert sorted(calls) == list(range(len(conns)))
     for c, w in zip(conns, want):
         assert c.err is None and c.got == w
+
+
+def _walk_streams():
+    """Streams for the chunk walk: corpus rows concatenated, one frame
+    spanning whole chunks, a bad prefix, a truncated frame, and a tail
+    shorter than a prefix."""
+    import struct
+
+    buf, lens, _slots, _maps = corpus.fleet(B=8, seed=9, frames=16)
+    s = b''.join(r[:n].tobytes() for r, n in zip(buf, lens))
+
+    def frame(body):
+        return struct.pack('>i', 16 + len(body)) + b'\x00' * 16 + body
+    return {
+        'corpus': s,
+        'spanning': frame(b'x' * 3000) + frame(b''),
+        'bad': s[:1000] + struct.pack('>i', -7) + s[:600],
+        'truncated': s[:2000] + struct.pack('>i', 900) + b'\x00' * 100,
+        'short_tail': s + b'\x00\x00',
+    }
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('sp', [1, 3, 4])
+@pytest.mark.parametrize('name', sorted(_walk_streams()))
+def test_seq_scan_and_chunk_walk_match_plain_on_card(cuda_device, sp, name):
+    """The sp scan on ``sp`` shards of one card equals the same scan on
+    CPU shards (the plain walk) and the pointer-doubling scan, with one
+    chunk-walk launch a shard a ring step; each chunk's walk, launched
+    alone from its true entry, equals the plain walk."""
+    from zkstream_tpu_torch.ops import seq_walk as SW
+    from zkstream_tpu_torch.ops.frame_scan import (
+        frame_starts_pointer_doubling)
+    from zkstream_tpu_torch.parallel import make_mesh, seq_parallel_frame_scan
+
+    s = _walk_streams()[name]
+    N = -(-(len(s) + 8) // (4 * sp)) * 4 * sp
+    pad = np.zeros(N, np.uint8)
+    pad[:len(s)] = np.frombuffer(s, np.uint8)
+    mesh = make_mesh(dp=1, sp=sp, devices=[cuda_device] * sp)
+    before = SW.launches
+    got = seq_parallel_frame_scan(mesh)(torch.from_numpy(pad).to(cuda_device),
+                                        len(s))
+    torch.cuda.synchronize()
+    assert SW.launches == before + 1 + max(sp - 1, 1) * sp
+    want = seq_parallel_frame_scan(make_mesh(dp=1, sp=sp, devices=['cpu'] * sp))(
+        torch.from_numpy(pad), len(s))
+    for a, b in zip(want, got):
+        assert torch.equal(a, b.cpu())
+    dbl, dbad = frame_starts_pointer_doubling(torch.from_numpy(pad), len(s))
+    assert torch.equal(dbl, want[0]) and bool(dbad) == bool(want[2])
+    C = N // sp
+    entry = 0
+    for i in range(sp):
+        ext = torch.from_numpy(np.concatenate([pad[i * C:(i + 1) * C],
+                                               pad[((i + 1) % sp) * C:][:4]]))
+        end = min(i * C + C, len(s))
+        q, mask, bad = SW.walk_plain(ext, i * C, end, len(s), entry)
+        st = SW.new_state(C, cuda_device)
+        SW.seq_walk(ext.to(cuda_device), i * C, end, len(s),
+                    torch.tensor(entry, dtype=torch.int32,
+                                 device=cuda_device), st)
+        assert (int(st.valid), int(st.exit), bool(st.bad)) == (1, q, bad)
+        assert torch.equal(st.mask.cpu(), mask)
+        entry = q
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dp', [1, 4])
+def test_sharded_step_equals_unsharded_on_card(cuda_device, dp):
+    """``sharded_wire_step`` over ``dp`` shards of one card launches K1
+    once a shard and equals the unsharded step bit for bit; the globals
+    equal the reductions of the unsharded result."""
+    from zkstream_tpu_torch.ops.bytesops import u64pair_reduce_max
+    from zkstream_tpu_torch.parallel import make_mesh, sharded_wire_step
+
+    buf, lens = _corpus_small()
+    db, dl = TP.batch_to_device(buf[:256], lens[:256], cuda_device)
+    mesh = make_mesh(dp=dp, devices=[cuda_device] * dp)
+    before = TW.launches
+    st, g = sharded_wire_step(mesh, max_frames=32)(db, dl)
+    assert TW.launches == before + dp
+    want = TP.wire_pipeline_step_auto(db, dl, max_frames=32)
+    for f in want._fields:
+        assert torch.equal(getattr(want, f), getattr(st, f)), f
+    h, lo = u64pair_reduce_max(want.max_zxid_hi, want.max_zxid_lo)
+    assert [int(x) for x in g] == [
+        int(want.n_frames.sum()), int(want.n_notifications.sum()),
+        int(want.n_errors.sum()), int(h), int(lo)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('body_mode', ['host', 'device'])
+def test_mesh_tick_equals_cpu_mesh_tick_on_card(cuda_device, body_mode):
+    """A mesh tick over 4 shards of one card launches its kernel (K1 or
+    K2) once a shard and packs what the same tick packs on 4 CPU
+    shards."""
+    from zkstream_tpu_torch.parallel import MeshFleetIngest, make_mesh
+
+    buf, _lens, _slots, _maps = corpus.fleet(B=12, seed=2, frames=16)
+    rows = [(None, bytearray(r.tobytes())) for r in buf]
+    kw = dict(body_mode=body_mode, max_frames=16, max_data=64, max_path=32,
+              max_children=6, max_name=12)
+    key = (16, 4096)
+    card = MeshFleetIngest(mesh=make_mesh(devices=[cuda_device] * 4), **kw)
+    before = TK2.launches, TW.launches
+    got = card._run_step(card._warm_bucket(key), rows)
+    k2, k1 = (4, 0) if body_mode == 'device' else (0, 4)
+    assert (TK2.launches, TW.launches) == (before[0] + k2, before[1] + k1)
+    cpu = MeshFleetIngest(mesh=make_mesh(devices=['cpu'] * 4), **kw)
+    want = cpu._run_step(cpu._warm_bucket(key), rows)
+    for a, b in zip(want, got):
+        if a is not None:
+            np.testing.assert_array_equal(a, b)

@@ -32,15 +32,31 @@ def test_every_module_is_found():
                  'zkstream_tpu_torch.protocol.framing',
                  'zkstream_tpu_torch.utils.native',
                  'zkstream_tpu_torch.utils.metrics',
+                 'zkstream_tpu_torch.ops.seq_walk',
+                 'zkstream_tpu_torch.ops.encode',
+                 'zkstream_tpu_torch.ops.bodies',
+                 'zkstream_tpu_torch.parallel',
+                 'zkstream_tpu_torch.parallel.mesh',
+                 'zkstream_tpu_torch.parallel.sharded',
+                 'zkstream_tpu_torch.parallel.seqscan',
+                 'zkstream_tpu_torch.parallel.multihost',
+                 'zkstream_tpu_torch.parallel.fleet',
                  'zkstream_tpu_torch.corpus', 'zkstream_tpu_torch.entry'):
         assert name in mods
 
 
-@pytest.mark.parametrize('script', ['modules', 'chip_smoke', 'native'])
+@pytest.mark.parametrize('script', ['modules', 'chip_smoke', 'native',
+                                    'parallel'])
 def test_imports_load_no_jax(script):
     if script == 'modules':
         body = 'import importlib\n' + ''.join(
             'importlib.import_module(%r)\n' % m for m in _modules())
+    elif script == 'parallel':
+        # the mesh plane imported and run end to end on CPU shards
+        body = ('import zkstream_tpu_torch.parallel\n'
+                'import zkstream_tpu_torch.ops.seq_walk\n'
+                'from zkstream_tpu_torch.entry import dryrun_multichip\n'
+                "dryrun_multichip(2, device='cpu')\n")
     elif script == 'native':
         # the host codec tier built, loaded and used: the C extension's
         # setup pulls in the port's records and consts only
@@ -81,20 +97,26 @@ def test_imports_load_no_jax(script):
 
 
 @pytest.mark.parametrize('what', ['entry', 'ingest', 'ingest_device',
-                                  'batch'])
+                                  'batch', 'mesh', 'mesh_ingest',
+                                  'multihost_ingest', 'dryrun'])
 def test_default_device_raises_without_card(what):
     if torch.cuda.is_available():
         pytest.skip('a card is present: the default device is valid')
-    from zkstream_tpu_torch.entry import entry
+    from zkstream_tpu_torch.entry import dryrun_multichip, entry
     from zkstream_tpu_torch.io.ingest import FleetIngest
     from zkstream_tpu_torch.ops.pipeline import batch_to_device
+    from zkstream_tpu_torch.parallel import (MeshFleetIngest,
+                                             MultihostFleetIngest, make_mesh)
 
     import numpy as np
 
     call = {'entry': entry, 'ingest': FleetIngest,
             'ingest_device': lambda: FleetIngest(body_mode='device'),
             'batch': lambda: batch_to_device(
-                np.zeros((2, 8), np.uint8), np.zeros((2,), np.int32))}
+                np.zeros((2, 8), np.uint8), np.zeros((2,), np.int32)),
+            'mesh': make_mesh, 'mesh_ingest': MeshFleetIngest,
+            'multihost_ingest': MultihostFleetIngest,
+            'dryrun': lambda: dryrun_multichip(2)}
     with pytest.raises(RuntimeError, match='CUDA'):
         call[what]()
 

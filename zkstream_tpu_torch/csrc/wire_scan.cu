@@ -690,6 +690,66 @@ __global__ void __launch_bounds__(32 * kK2MaxWarps, 4)
   }
 }
 
+// ----------------------------------------------------- the chunk walk --
+
+// The sequence-parallel scan's chunk walk (ops/seq_walk.py), replacing
+// the XLA while_loop of zkstream_tpu/parallel/seqscan.py::_walk.  One
+// stream's byte axis is cut into chunks; a chunk's walk starts at the
+// absolute cursor the previous chunk handed on and follows the frames
+// until the cursor passes chunk_end.  `ext` is the chunk (C bytes from
+// absolute offset `base`) plus a 4-byte halo of the next chunk, so a
+// prefix straddling the boundary is readable here.  Every byte offset is
+// clamped to [0, C+3], as the plain version's _byte_at clamps it.
+struct ChunkReader {
+  const uint8_t* ext;
+  u32 base;
+  u32 E;  // C + 4
+  __device__ __forceinline__ u32 byte(int64_t rel) const {
+    return ext[rel < 0 ? 0 : (rel >= E ? E - 1 : rel)];
+  }
+  __device__ __forceinline__ int32_t word(u32 off) const {
+    const int64_t rel = static_cast<int64_t>(off) - base;
+    return static_cast<int32_t>((byte(rel) << 24) | (byte(rel + 1) << 16) |
+                                (byte(rel + 2) << 8) | byte(rel + 3));
+  }
+};
+
+// One thread.  The ring hands the entry cursor over in device memory: the
+// walk runs only if this chunk has not walked yet (*valid == 0) and an
+// entry was offered (*rcv >= 0), so the ring makes no host round trip a
+// step.  A missing 4-byte prefix (cur + 4 > n) ends the walk with the exit
+// at the cursor; a bad length or a truncated frame ends the whole
+// stream's decode, so the exit saturates to 1 << 30 and every later chunk
+// adopts an entry past its end.  next_frame() returns -1 for both of the
+// latter and for a missing prefix, so the loop tests the prefix first.
+__global__ void seq_walk_kernel(const uint8_t* __restrict__ ext, u32 C,
+                                u32 base, u32 chunk_end, u32 n,
+                                const int32_t* __restrict__ rcv,
+                                int32_t* __restrict__ valid,
+                                int32_t* __restrict__ exit_q,
+                                uint8_t* __restrict__ mask,
+                                uint8_t* __restrict__ bad_out) {
+  if (*valid != 0) return;
+  const int32_t entry = *rcv;
+  if (entry < 0) return;
+  *valid = 1;
+  const ChunkReader rd{ext, base, C + 4};
+  u32 q = static_cast<u32>(entry);
+  bool bad = false, stopped = false;
+  while (q < chunk_end && q + 4 <= n) {
+    const int32_t ln = next_frame(rd, n, q, bad);
+    if (ln < 0) {
+      stopped = !bad;
+      break;
+    }
+    const int64_t rel = static_cast<int64_t>(q) - base;
+    if (rel >= 0 && rel < C) mask[rel] = 1;
+    q += 4 + u32(ln);
+  }
+  *exit_q = (bad || stopped) ? (1 << 30) : static_cast<int32_t>(q);
+  *bad_out = bad ? 1 : 0;
+}
+
 }  // namespace
 
 // Plain C launchers, bound with ctypes.  Each launches on `stream` and
@@ -759,5 +819,24 @@ extern "C" int full_scan_launch(const void* buf, const void* lens, int B,
       static_cast<int32_t*>(hdr), static_cast<int32_t*>(dw),
       static_cast<int32_t*>(sw), static_cast<int32_t*>(counts),
       static_cast<int32_t*>(resid), static_cast<uint8_t*>(bad));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The chunk walk: one thread, one chunk.  Cursors and lengths are below
+// 2^31 (the wrapper checks C, base and n), so the u32 arithmetic of
+// next_frame() does not wrap.
+extern "C" int seq_walk_launch(const void* ext, long long C, long long base,
+                               long long chunk_end, long long n,
+                               const void* rcv, void* valid, void* exit_q,
+                               void* mask, void* bad, void* stream) {
+  if (C < 1 || C + 4 > INT32_MAX || base < 0 || base > INT32_MAX ||
+      chunk_end < 0 || chunk_end > INT32_MAX || n < 0 || n > INT32_MAX)
+    return static_cast<int>(cudaErrorInvalidValue);
+  seq_walk_kernel<<<1, 1, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint8_t*>(ext), static_cast<u32>(C),
+      static_cast<u32>(base), static_cast<u32>(chunk_end), static_cast<u32>(n),
+      static_cast<const int32_t*>(rcv), static_cast<int32_t*>(valid),
+      static_cast<int32_t*>(exit_q), static_cast<uint8_t*>(mask),
+      static_cast<uint8_t*>(bad));
   return static_cast<int>(cudaGetLastError());
 }

@@ -331,16 +331,26 @@ class FleetIngest:
         """Build the tick's kernel (first use, on a CUDA device) and
         allocate one bucket's tensors."""
         Bp, L = key
-        device_bodies = self.body_mode == 'device'
         if self.device.type == 'cuda':
-            from ..ops import full_scan, wire_scan
-            (full_scan if device_bodies else wire_scan).load()
+            self._load_kernel()
+        return _Bucket(Bp, L, self.max_frames, self.device,
+                       *self._packed_widths())
+
+    def _load_kernel(self) -> None:
+        """Build and bind the tick's kernel (K2 in device-body mode, K1
+        otherwise)."""
+        from ..ops import full_scan, wire_scan
+        (full_scan if self.body_mode == 'device' else wire_scan).load()
+
+    def _packed_widths(self) -> tuple:
+        """``(int32 columns, uint8 bytes per frame)`` of a packed tick
+        row in this body mode."""
+        device_bodies = self.body_mode == 'device'
         n_planes = len(self._HDR_PLANES) + (
             self._n_body_planes() if device_bodies else 0)
         n_bytes = (sum(w for _n, w in self._bytes_schema())
                    if device_bodies else 0)
-        return _Bucket(Bp, L, self.max_frames, self.device,
-                       3 + n_planes * self.max_frames, n_bytes)
+        return 3 + n_planes * self.max_frames, n_bytes
 
     def _try_warm(self, key: tuple):
         """Warm ``key``; a failure is returned (and raised by the tick
@@ -498,13 +508,18 @@ class FleetIngest:
         """The tick computation on ``buf``/``lens`` (device tensors):
         decode and pack into ``(ints [Bp, 3 + K*F], bytes [Bp, F, W])``,
         ``bytes`` None in host-body mode."""
+        return self._step_st(buf, lens)[1:]
+
+    def _step_st(self, buf, lens):
+        """:meth:`_step` with the tick's ``WireStats`` first: ``(st,
+        ints, bytes)`` (the mesh ingest reduces ``st`` fleet-wide)."""
         from ..ops.pipeline import wire_full_decode, wire_pipeline_step_auto
         from ..ops.replies import parse_list_bodies, parse_reply_bodies
 
         F = self.max_frames
         if self.body_mode == 'host':
             st = wire_pipeline_step_auto(buf, lens, max_frames=F)
-            return self._pack_ints(st, ()), None
+            return st, self._pack_ints(st, ()), None
         st, gd = wire_full_decode(buf, lens, max_frames=F,
                                   max_data=self.max_data)
         bd = parse_reply_bodies(buf, st.starts, st.sizes,
@@ -515,7 +530,7 @@ class FleetIngest:
             max_children=self.max_children, max_name=self.max_name,
             max_acls=self.max_acls, max_scheme=self.max_scheme,
             max_id=self.max_id)
-        return self._pack_bodies(st, bd, lb)
+        return (st,) + self._pack_bodies(st, bd, lb)
 
     def _pack_bodies(self, st, bd, lb):
         """Pack a device-body tick's ``WireStats``, ``ReplyBodies`` and
@@ -763,11 +778,10 @@ class FleetIngest:
         if retick:
             self._schedule()
 
-    def _run_step(self, bk: _Bucket, active):
-        """Stage the active streams, run the tick (:meth:`_step`) and
-        read back the packed ``(ints, bytes-or-None)`` as numpy: two
-        pinned readbacks and one synchronize on a CUDA device."""
-        B = len(active)
+    @staticmethod
+    def _fill_staging(bk, active) -> None:
+        """Copy the active streams into the bucket's staging rows and
+        lengths (rows past them get length 0)."""
         # Staging rows are reused without zeroing the bytes past a
         # row's length.  The frame scan reads only inside complete
         # frames; the body parse reads speculatively past frame ends,
@@ -780,7 +794,14 @@ class FleetIngest:
             n = len(buf)
             bk.buf_np[i, :n] = np.frombuffer(buf, np.uint8)
             lens[i] = n
-        lens[B:] = 0
+        lens[len(active):] = 0
+
+    def _run_step(self, bk: _Bucket, active):
+        """Stage the active streams, run the tick (:meth:`_step`) and
+        read back the packed ``(ints, bytes-or-None)`` as numpy: two
+        pinned readbacks and one synchronize on a CUDA device."""
+        B = len(active)
+        self._fill_staging(bk, active)
         cuda = self.device.type == 'cuda'
         if cuda:
             bk.dev_buf[:B].copy_(bk.stage_buf[:B], non_blocking=True)

@@ -2,17 +2,24 @@
 
 - :mod:`bytesops` — gather-based big-endian field extraction, 64-bit
   fields as (hi, lo) int32 pairs;
-- :mod:`frame_scan` — the lockstep frame cursor scan;
+- :mod:`frame_scan` — the lockstep frame cursor scan, and the
+  pointer-doubling scan of one long stream;
 - :mod:`headers` — reply-header parse and per-stream reductions;
 - :mod:`wire_scan` — kernel K1 (scan + header parse in one CUDA
   launch) and its plain version;
 - :mod:`full_scan` — kernel K2 (K1's walk plus the GET_DATA body in
   one CUDA launch) and its plain version;
+- :mod:`seq_walk` — the sequence-parallel scan's chunk walk (one CUDA
+  thread) and its plain version;
 - :mod:`replies` — the reply-body parse (fixed layouts and lists);
+- :mod:`bodies` — frame bodies sliced into a padded tensor;
+- :mod:`encode` — the inverse direction: field planes -> framed reply
+  streams;
 - :mod:`pipeline` — the tick decode over a [B, L] batch, with or
   without the GET_DATA bodies.
 """
 
+from .bodies import slice_frame_bodies  # noqa: F401
 from .bytesops import (  # noqa: F401
     be_i32_at,
     be_i64pair_at,
@@ -20,7 +27,11 @@ from .bytesops import (  # noqa: F401
     u64pair_max,
     u64pair_reduce_max,
 )
-from .frame_scan import frame_cursor_scan  # noqa: F401
+from .encode import build_reply_streams  # noqa: F401
+from .frame_scan import (  # noqa: F401
+    frame_cursor_scan,
+    frame_starts_pointer_doubling,
+)
 from .headers import parse_reply_headers, stream_stats  # noqa: F401
 from .pipeline import (  # noqa: F401
     GetDataBodies,

@@ -10,9 +10,19 @@ length, so the loop length is max-frames-per-stream while the work per
 step is vectorised across the batch.  This is the plain version of
 kernel K1 (``ops/wire_scan.py``), which does the same walk with one
 CUDA thread per stream.
+
+``frame_starts_pointer_doubling`` finds every frame of a *single* long
+stream in O(log L) parallel steps: every byte position speculatively
+computes its successor "if a frame started here, the next would start
+at i + 4 + len(i)", and frame starts are the positions reachable from 0
+in that successor graph, found by pointer doubling.  Plain torch ops on
+either device; ``parallel/seqscan.py``'s checks hold the sequence-
+parallel scan against it.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -60,3 +70,47 @@ def frame_cursor_scan(buf, lens, max_frames: int):
         sizes = torch.zeros_like(starts)
     counts = (starts >= 0).sum(dim=1, dtype=torch.int32)
     return starts, sizes, counts, bad, cur
+
+
+def frame_starts_pointer_doubling(buf, n):
+    """All frame starts of one stream in O(log L) parallel steps.
+
+    Args:
+      buf: uint8 [L] — a single stream's bytes.
+      n: int scalar (or 0-d tensor) — valid byte count.
+
+    Returns:
+      is_start: bool [L] — True at each offset where a complete frame's
+        4-byte length prefix begins.
+      bad: bool 0-d — a reachable position had an invalid length prefix.
+
+    The successor map saturates at sentinel L for incomplete/invalid
+    positions (and ``f[L] = L``), so reachability never escapes the
+    buffer; positions past a bad prefix are unreachable, matching the
+    sequential decoder's stop-at-error behaviour.
+    """
+    L = buf.shape[0]
+    idx = torch.arange(L, dtype=torch.int32, device=buf.device)
+    ln = be_i32_at(buf[None, :], idx[None, :])[0]
+    has_prefix = idx + 4 <= n
+    ln = torch.where(has_prefix, ln, 0)
+    invalid = has_prefix & ((ln < 0) | (ln > MAX_PACKET))
+    complete = has_prefix & ~invalid & (idx + 4 + ln <= n)
+    succ = torch.where(complete, idx + 4 + ln, L).to(torch.int32)
+
+    # Reachability from position 0 by pointer doubling: after k rounds
+    # every position within 2^k frame-hops of 0 is marked.
+    f = torch.cat([succ, torch.full((1,), L, dtype=torch.int32,
+                                    device=buf.device)]).to(torch.int64)
+    reach = torch.zeros((L + 1,), dtype=torch.int32, device=buf.device)
+    reach[0] = 1
+    rounds = max(1, math.ceil(math.log2(max(2, L))))
+    for _ in range(rounds):
+        # scatter-max of the reach mask at the successors, then square
+        # f.  Out of place: the source is read whole before any write,
+        # as the JAX scatter reads it (an in-place scatter_reduce_ whose
+        # source views the same tensor would not)
+        reach = reach.scatter_reduce(0, f[:-1], reach[:-1], reduce='amax')
+        f = f[f]
+    reached = reach[:L].to(torch.bool)
+    return reached & complete, torch.any(reached & invalid)

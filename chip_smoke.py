@@ -119,6 +119,35 @@ Phases (any failure exits non-zero; nothing is caught):
    must leave ``launch_count == tick_count == N``, K1 launched 4 x N
    times, and every packet equal.  The group is destroyed before the
    report.
+12. Live clients on the card: 1,024 of the port's ``Client`` (the
+   largest cell of ``CROSSOVER.md``) against one port ``ZKServer`` on
+   127.0.0.1, in memory (``db=ZKDatabase()``, no WAL), as
+   ``bench.py``'s client-ops cells run, but with a 120 s session
+   timeout (``LIVE_SESSION_TIMEOUT_MS``: pings time out after an eighth
+   of it, and 3.75 s was too short for 1,024 sessions on one loop).
+   The soft fd limit is raised first (``utils.fdlimit.raise_nofile``)
+   and the phase fails with ``headroom_error``'s message if the 2,048
+   sockets do not fit; the transport tiers resolved on both sides are
+   printed.  Each client first runs the op surface of the reference's
+   ingest parity workload (``tests/test_ingest.py::_workload``) in its
+   own subtree ``/f/<i>`` and records its observations as plain tuples;
+   then ``bench.py``'s mixed workload (get, set and create on 64-byte
+   data; 8, 4 and 2 ops a client) and its watch fan-out (every client
+   watches ``/b``; one set fires 1,024 notifications and their re-arm
+   reads).  Three runs, each on a fresh server: the scalar drain
+   (``ingest=None``, C codecs: the reference's default), then one
+   shared ``FleetIngest(device='cuda', bypass_bytes=0, warm='block',
+   max_frames=4)`` in ``body_mode='host'`` and in ``body_mode='device'``
+   (default widths), each prewarmed before the first client connects.
+   Every client's observations in the ingest runs must equal the scalar
+   run's, every fan-out watcher must fire exactly once, K1's launches
+   (from 0 before the run) must equal the host-body run's device ticks
+   with no K2, K2's the device-body run's with no K1, and neither run
+   may take a scalar, warming or fragmentation tick or fall back to a
+   scalar body reader.  Each run prints its connect time, ops/s with
+   p50/p99 by op kind, the fan-out time, the mean tick and its device
+   half.  Last, ``entry.dryrun_multichip(4, devices=[cuda:0] * 4)``
+   serves its live fleets through both mesh ingests on the card.
 
 The last lines are the card's name and power limit, one JSON object of
 kernels, and ``{"ok": true, "device": {...}}``.  Without a CUDA device
@@ -154,6 +183,15 @@ RING_B, RING_L = 9001, 6004
 ADV_B, ADV_L = 9001, 512
 FLOOR_ROWS = 256               # K1's latency floor: eight warps' rows
 SPIN_CYCLES = 20_000_000       # _device_ms's spin, about 10 ms at 2 GHz
+LIVE_CLIENTS = 1024            # phase 12: CROSSOVER.md's largest cell
+LIVE_OPS_TOTAL = 1920          # bench.py's OPS_TOTAL, fleet-wide per kind
+LIVE_TIMEOUT = 180.0           # phase 12: the longest any one wait may take
+# Phase 12's session timeout, ms.  A client's ping times out after an
+# eighth of it (io/connection.py); with 1,024 sessions and the server on
+# one event loop, replies on the card machine's host took longer than the
+# 3.75 s that bench.py's 30 s timeout allows, so the session is given 120 s
+# (15 s for a ping).
+LIVE_SESSION_TIMEOUT_MS = 120000
 
 
 def _log(msg: str) -> None:
@@ -336,16 +374,18 @@ def _count_assembly(ing) -> dict:
 
 class _GcPauses:
     """The interpreter's garbage-collector pauses while installed: their
-    total seconds and their count by generation."""
+    total seconds, the longest, and their count by generation."""
 
     def __init__(self):
-        self.s, self.n, self._t = 0.0, [0, 0, 0], 0.0
+        self.s, self.n, self._t, self.max = 0.0, [0, 0, 0], 0.0, 0.0
 
     def __call__(self, phase, info):
         if phase == 'start':
             self._t = time.perf_counter()
         else:
-            self.s += time.perf_counter() - self._t
+            d = time.perf_counter() - self._t
+            self.s += d
+            self.max = max(self.max, d)
             self.n[info['generation']] += 1
 
     def __enter__(self):
@@ -635,6 +675,322 @@ def _multihost_run(PAR, W, K2, PacketCodec, xmaps, chunks, wants, dev,
     return {'k1': k1, 'ticks': proxy.tick_count, 'backend': backend}
 
 
+def _stat_obs(stat) -> tuple:
+    """Stat fields that are equal across two fresh servers running the
+    same op sequence (times are wall-clock; zxids depend on how the
+    sessions interleave)."""
+    return (stat.version, stat.cversion, stat.dataLength,
+            stat.numChildren, stat.ephemeralOwner == 0)
+
+
+async def _until(cond, what: str) -> None:
+    loop = asyncio.get_running_loop()
+    deadline = loop.time() + LIVE_TIMEOUT
+    while not cond():
+        if loop.time() > deadline:
+            raise AssertionError('phase 12: %s did not happen in %.0f s'
+                                 % (what, LIVE_TIMEOUT))
+        await asyncio.sleep(0.01)
+
+
+async def _live_workload(c, root: str, ZKError, CreateFlag) -> list:
+    """The op surface and watcher sequence of the reference's ingest
+    parity workload (``tests/test_ingest.py::_workload``), rooted at
+    ``root``, recorded as plain tuples."""
+    obs: list = []
+    events: list = []
+    # futures, not polling: 1,024 clients polling a condition every few
+    # milliseconds would load the loop they share with the server
+    loop = asyncio.get_running_loop()
+    first, changed = loop.create_future(), loop.create_future()
+
+    def on_event(evt, *a):
+        events.append((evt, bytes(a[0]) if evt == 'dataChanged' and a
+                       else None))
+        for fut, hit in ((first, True), (changed, evt == 'dataChanged')):
+            if hit and not fut.done():
+                fut.set_result(None)
+
+    w = c.watcher(root + '/w')
+    for evt in ('created', 'deleted', 'dataChanged'):
+        w.on(evt, lambda *a, _e=evt: on_event(_e, *a))
+    # the first arm on a missing node emits 'deleted'
+    await asyncio.wait_for(first, LIVE_TIMEOUT)
+    obs.append(('create', await c.create(root + '/w', b'v0')))
+    data, stat = await c.get(root + '/w')
+    obs.append(('get', data, _stat_obs(stat)))
+    stat = await c.set(root + '/w', b'v1' * 40)
+    obs.append(('set', _stat_obs(stat)))
+    data, stat = await c.get(root + '/w')
+    obs.append(('get2', data, _stat_obs(stat)))
+    obs.append(('exists', _stat_obs(await c.stat(root + '/w'))))
+    children, stat = await c.list(root)
+    obs.append(('ls', sorted(children), _stat_obs(stat)))
+    obs.append(('acl', tuple((int(a.perms), a.id.scheme, a.id.id)
+                             for a in await c.get_acl(root + '/w'))))
+    try:
+        await c.get(root + '/missing')
+    except ZKError as e:
+        obs.append(('err', e.code))
+    obs.append(('seq', await c.create(
+        root + '/q-', b'',
+        flags=CreateFlag.SEQUENTIAL | CreateFlag.EPHEMERAL)))
+    await c.sync(root + '/w')
+    obs.append(('ping', (await c.ping()) >= 0))
+    await asyncio.wait_for(changed, LIVE_TIMEOUT)
+    obs.append(('events', events[:3]))
+    return obs
+
+
+def _pcts(lat: list) -> tuple:
+    """p50 and p99 of ``lat`` (ms), as bench.py's ``_percentiles``."""
+    lat = sorted(lat)
+    return tuple(lat[min(len(lat) - 1, int(p / 100.0 * len(lat)))]
+                 for p in (50, 99))
+
+
+async def _lag_monitor(lag: list) -> None:
+    """Record the event loop's longest lag behind a 10 ms ticker in
+    ``lag[0]``: how long any one callback or collection held the loop,
+    the thing a session's ping timeout measures."""
+    loop = asyncio.get_running_loop()
+    while True:
+        t = loop.time()
+        await asyncio.sleep(0.01)
+        lag[0] = max(lag[0], loop.time() - t - 0.01)
+
+
+async def _live_serve(ingest, n: int, what: str, pauses) -> dict:
+    """One phase-12 run on a fresh in-memory server: ``n`` port clients
+    through ``ingest`` (None: the per-socket scalar drain) run the parity
+    workload, the mixed workload and the watch fan-out.  A progress line
+    after each step carries the loop's longest lag and the collector's
+    pauses so far (``pauses``: a ``_GcPauses``)."""
+    from zkstream_tpu_torch import Client, CreateFlag, ZKError
+    from zkstream_tpu_torch.io import transport
+    from zkstream_tpu_torch.server import ZKDatabase, ZKServer
+
+    loop = asyncio.get_running_loop()
+    out: dict = {}
+    lag = [0.0]
+    t_run = loop.time()
+
+    def step(name: str) -> None:
+        _log('# phase 12 (%s) %s done at %.2f s: longest loop lag %.3f s, '
+             'collector pauses %.3f s (longest %.3f s, by generation %s)'
+             % (what, name, loop.time() - t_run, lag[0], pauses.s,
+                pauses.max, pauses.n))
+
+    monitor = loop.create_task(_lag_monitor(lag))
+    srv = await ZKServer(db=ZKDatabase()).start()
+    clients: list = []
+    try:
+        if ingest is not None:
+            # warm the buckets before any session exists: a warm inside
+            # a tick delays every session's replies behind it
+            bp = 8
+            while bp <= n:
+                for nb in (None, 512, 1024):
+                    await ingest.prewarm(bp, nb)
+                bp *= 2
+        t0 = loop.time()
+        clients = [Client(address='127.0.0.1', port=srv.port,
+                          session_timeout=LIVE_SESSION_TIMEOUT_MS,
+                          ingest=ingest, use_native_codec=True)
+                   for _ in range(n)]
+        for c in clients:
+            c.start()
+        await asyncio.gather(*[c.wait_connected(timeout=LIVE_TIMEOUT)
+                               for c in clients])
+        out['connect_s'] = loop.time() - t0
+        step('connect')
+        if any(c.current_connection().ingest is not ingest
+               for c in clients):
+            raise AssertionError('a connection does not drain through the '
+                                 'run\'s ingest')
+        chosen = transport.probe().chosen
+        ct = clients[0].transport_tier
+        tiers = {'client': 'asyncio' if ct is None else ct.backend,
+                 'server': ('asyncio' if srv.transport_tier is None
+                            else srv.transport_tier.backend),
+                 'server ingress': ('asyncio' if srv.ingress is None
+                                    else '%s x %d shards' % (
+                                        srv.ingress.backend,
+                                        srv.ingress.nshards))}
+        if tiers['client'] != chosen or tiers['server'] != chosen:
+            raise AssertionError('transport tiers %s, probe() chose %s'
+                                 % (tiers, chosen))
+        out['tiers'] = tiers
+
+        await clients[0].create('/f', b'')
+        await asyncio.gather(*[c.create('/f/%d' % i, b'')
+                               for i, c in enumerate(clients)])
+        t0 = loop.time()
+        out['obs'] = await asyncio.gather(*[
+            _live_workload(c, '/f/%d' % i, ZKError, CreateFlag)
+            for i, c in enumerate(clients)])
+        out['parity_s'] = loop.time() - t0
+        step('parity workload')
+
+        # bench.py's mixed workload on 64-byte data
+        await clients[0].create('/b', b'x' * 64)
+        for _ in range(5):
+            await asyncio.gather(*[c.get('/b') for c in clients])
+        per = max(8, LIVE_OPS_TOTAL // n)
+        seqs = [0] * n
+
+        async def timed(op, k):
+            lat = []
+            for _ in range(k):
+                t = loop.time()
+                await op()
+                lat.append((loop.time() - t) * 1000.0)
+            return lat
+
+        def mk_create(c, i):
+            async def run():
+                seqs[i] += 1
+                await c.create('/c%d-%d' % (i, seqs[i]), b'')
+            return run
+
+        ops = {}
+        for name, of, k in (
+                ('get', lambda c, i: lambda: c.get('/b'), per),
+                ('set', lambda c, i: lambda: c.set('/b', b'y' * 64),
+                 per // 2),
+                ('create', mk_create, per // 4)):
+            t0 = loop.time()
+            lats = await asyncio.gather(*[timed(of(c, i), k)
+                                          for i, c in enumerate(clients)])
+            dt = loop.time() - t0
+            flat = [x for lat in lats for x in lat]
+            p50, p99 = _pcts(flat)
+            ops[name] = {'ops_per_sec': len(flat) / dt, 'p50_ms': p50,
+                         'p99_ms': p99, 'ops': len(flat)}
+            step(name)
+        out['ops'] = ops
+
+        # the watch fan-out: arming a dataChanged watch on an existing
+        # node emits once (the arming read); wait those out, then one set
+        fired = [0] * n
+        for i, c in enumerate(clients):
+            c.watcher('/b').on('dataChanged', lambda *a, _i=i:
+                               fired.__setitem__(_i, fired[_i] + 1))
+        await _until(lambda: all(fired), 'every arm-time emit')
+        await asyncio.sleep(0.2)
+        fired[:] = [0] * n
+        t0 = loop.time()
+        await clients[0].set('/b', b'z' * 64)
+        await _until(lambda: all(fired), 'the fan-out to every watcher')
+        out['fanout_ms'] = (loop.time() - t0) * 1000.0
+        await asyncio.sleep(0.5)    # the re-arm reads land; none re-fires
+        twice = [i for i, f in enumerate(fired) if f != 1]
+        if twice:
+            raise AssertionError('fan-out: %d watchers fired other than once '
+                                 '(first: client %d, %d times)'
+                                 % (len(twice), twice[0], fired[twice[0]]))
+        step('fan-out')
+        out['lag_s'] = lag[0]
+    finally:
+        monitor.cancel()
+        await asyncio.gather(*[c.close() for c in clients])
+        await srv.stop()
+    return out
+
+
+def _live_phase(W, K2, smi: str) -> dict:
+    """Phase 12: 1,024 live port clients against the port's server, the
+    scalar drain then the fleet ingest with host and with device
+    bodies; returns each run's measurements and kernel launches."""
+    import torch
+
+    from zkstream_tpu_torch.io import ingress, transport
+    from zkstream_tpu_torch.io.ingest import FleetIngest
+    from zkstream_tpu_torch.utils import fdlimit
+
+    n = LIVE_CLIENTS
+    need = 2 * n + 256          # both ends of every session, plus spares
+    soft, hard = fdlimit.raise_nofile(need + 256)
+    err = fdlimit.headroom_error(need)
+    if err:
+        raise RuntimeError('phase 12 needs %d descriptors: %s' % (need, err))
+    tp, ip = transport.probe(refresh=True), ingress.probe(refresh=True)
+    if tp.uring and tp.chosen != 'uring' and tp.forced is None:
+        raise AssertionError('io_uring answers but the tier chose %s'
+                             % (tp.chosen,))
+    _log('# phase 12 setup: soft/hard fd limit %d/%d; transport probe: '
+         'chose %s (uring %s: %s; mmsg %s: %s; forced %s); ingress probe: '
+         'chose %s (uring %s: %s; reuseport %s)' % (
+             soft, hard, tp.chosen, tp.uring, tp.uring_reason, tp.mmsg,
+             tp.mmsg_reason, tp.forced, ip.chosen, ip.uring,
+             ip.uring_reason, ip.reuseport))
+    runs: dict = {}
+    for mode in ('scalar', 'host', 'device'):
+        ing = None
+        if mode != 'scalar':
+            ing = FleetIngest(device='cuda', body_mode=mode, bypass_bytes=0,
+                              warm='block', max_frames=4)
+        step_s: list = []
+        if ing is not None:
+            _timed(ing, step_s)
+        torch.cuda.synchronize()
+        W.launches = K2.launches = 0
+        t0 = time.perf_counter()
+        with _GcPauses() as pauses:
+            out = asyncio.run(_live_serve(ing, n, mode, pauses))
+        wall = time.perf_counter() - t0
+        out['k1'], out['k2'] = W.launches, K2.launches
+        runs[mode] = out
+        line = ('# phase 12 (%s) on %s: %d clients connected in %.3f s '
+                '(tiers %s); parity workload %.3f s; ' % (
+                    mode, smi, n, out['connect_s'], out['tiers'],
+                    out['parity_s']))
+        line += '; '.join(
+            '%s %.1f ops/s p50 %.3f ms p99 %.3f ms (%d ops)' % (
+                k, v['ops_per_sec'], v['p50_ms'], v['p99_ms'], v['ops'])
+            for k, v in out['ops'].items())
+        line += '; fan-out to %d watchers %.3f ms' % (n, out['fanout_ms'])
+        if ing is not None:
+            want_k1 = ing.ticks if mode == 'host' else 0
+            want_k2 = ing.ticks if mode == 'device' else 0
+            if not (ing.ticks > 0 and out['k1'] == want_k1
+                    and out['k2'] == want_k2 and ing.ticks_scalar == 0
+                    and ing.ticks_warming == 0 and ing.ticks_frag == 0
+                    and ing.frames_routed > 0 and ing.body_fallbacks == 0):
+                raise AssertionError(
+                    'phase 12 (%s): ticks %d (scalar %d, warming %d, frag '
+                    '%d), frames routed %d, body fallbacks %d; K1 %d, K2 %d '
+                    'launches' % (mode, ing.ticks, ing.ticks_scalar,
+                                  ing.ticks_warming, ing.ticks_frag,
+                                  ing.frames_routed, ing.body_fallbacks,
+                                  out['k1'], out['k2']))
+            if out['obs'] != runs['scalar']['obs']:
+                bad = [i for i, (a, b) in enumerate(
+                    zip(out['obs'], runs['scalar']['obs'])) if a != b]
+                raise AssertionError(
+                    'phase 12 (%s): %d clients observed other than in the '
+                    'scalar run; client %d: %r vs %r' % (
+                        mode, len(bad), bad[0], out['obs'][bad[0]],
+                        runs['scalar']['obs'][bad[0]]))
+            tick_ms = ing.tick_hist.sum() / max(ing.tick_hist.count(), 1)
+            out['tick_ms'] = tick_ms
+            out['device_ms'] = sum(step_s) * 1e3 / max(len(step_s), 1)
+            line += ('; %d device ticks = %d %s launches (%d %s), %d frames '
+                     'routed, 0 scalar/warming/frag ticks, 0 body fallbacks; '
+                     'mean tick %.3f ms, of which the device half %.3f ms; '
+                     'every observation equal to the scalar run\'s' % (
+                         ing.ticks, ing.ticks,
+                         'K1' if mode == 'host' else 'K2',
+                         out['k2'] if mode == 'host' else out['k1'],
+                         'K2' if mode == 'host' else 'K1',
+                         ing.frames_routed, tick_ms, out['device_ms']))
+        _log(line + '; every fan-out watcher fired once; longest loop lag '
+             '%.3f s; collector pauses %.3f s (longest %.3f s); run wall '
+             '%.2f s' % (out['lag_s'], pauses.s, pauses.max, wall))
+        out['gc_s'], out['wall_s'] = pauses.s, wall
+    return runs
+
+
 def main() -> int:
     import torch
 
@@ -644,7 +1000,7 @@ def main() -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from zkstream_tpu_torch import corpus
     from zkstream_tpu_torch import parallel as PAR
-    from zkstream_tpu_torch.entry import entry
+    from zkstream_tpu_torch.entry import dryrun_multichip, entry
     from zkstream_tpu_torch.io.ingest import FleetIngest
     from zkstream_tpu_torch.ops import full_scan as K2
     from zkstream_tpu_torch.ops import pipeline as P
@@ -682,11 +1038,15 @@ def main() -> int:
         raise RuntimeError('host codec tier did not build (scanner %r, '
                            'extension %r); see the compiler output above'
                            % (scanner, ext))
+    missing = [f for f in N.EXT_TRANSPORT_CALLS if not hasattr(ext, f)]
+    if missing:
+        raise RuntimeError('the C extension lacks its transport calls %s'
+                           % (missing,))
     _log('# phase 1 build: %.2f s; host codec tier: scanner %s (ABI %d), '
-         'extension %s %s (ABI %d), Python.h %s' % (
+         'extension %s %s (ABI %d, transport calls %s), Python.h %s' % (
              time.perf_counter() - t0, scanner._name,
              scanner.zkwire_abi_version(), ext.__name__, ext.__file__,
-             ext.abi_version(), py_h))
+             ext.abi_version(), ', '.join(N.EXT_TRANSPORT_CALLS), py_h))
     for line in W.build_report().splitlines():
         if ('registers' in line or 'spill' in line or 'smem' in line
                 or 'Compiling entry' in line):
@@ -1261,6 +1621,22 @@ def main() -> int:
     mh = _multihost_run(PAR, W, K2, PacketCodec, xmaps, chunks, wants, dev,
                         smi)
 
+    # -- 12. live clients against the port's server.  The heap the
+    # earlier phases leave (the corpus, its xid maps, the scalar drain's
+    # packets) is the script's, not the fleet's: frozen out of the
+    # collector's reach, so phase 12's collections walk only what the
+    # live fleet allocates, as they would in a process serving it
+    gc.collect()
+    gc.freeze()
+    try:
+        live = _live_phase(W, K2, smi)
+    finally:
+        gc.unfreeze()
+    t0 = time.perf_counter()
+    dry = dryrun_multichip(4, devices=[dev] * 4)
+    _log('# phase 12 dryrun_multichip(4) on %s, live fleets through both '
+         'mesh ingests: %s; %.2f s' % (smi, dry, time.perf_counter() - t0))
+
     # -- report --
     kernels = [{
         'name': 'K1 wire_scan (frame scan + reply-header parse)',
@@ -1284,7 +1660,9 @@ def main() -> int:
             'phase 4 FleetIngest, C codecs': launches,
             'phase 8 sharded_wire_step dp=4': sharded['dp=4 on one card'][1],
             'phase 10 MeshFleetIngest host bodies': mesh_runs['host']['k1'],
-            'phase 11 MultihostFleetIngest': mh['k1']},
+            'phase 11 MultihostFleetIngest': mh['k1'],
+            'phase 12 live Clients, FleetIngest host bodies':
+                live['host']['k1']},
     }, {
         'name': 'K2 full_scan (K1 + GET_DATA body words)',
         'route': 'cuda',
@@ -1306,7 +1684,9 @@ def main() -> int:
         'launches_by_path': {
             'phase 7 FleetIngest device bodies': k2_launches,
             'phase 10 MeshFleetIngest device bodies':
-                mesh_runs['device']['k2']},
+                mesh_runs['device']['k2'],
+            'phase 12 live Clients, FleetIngest device bodies':
+                live['device']['k2']},
     }, {
         'name': 'seq_walk (the sequence-parallel scan\'s chunk walk)',
         'route': 'cuda',

@@ -1,6 +1,8 @@
 """Kernels K1 and K2 and the chunk walk against their plain versions on
 a CUDA card, the mesh plane's sharded steps against the unsharded ones,
-and the ticks on the card against the same ticks on the CPU (no
+the ticks on the card against the same ticks on the CPU, and live port
+clients against the port's server through ``FleetIngest`` on the card
+against the scalar drain (no
 JAX here, so the file also runs where only the port is installed:
 ``python -m pytest --noconftest tests/test_torch_cuda.py``).  Every
 test is marked ``cuda`` and skips without a card; the decision is made
@@ -360,3 +362,93 @@ def test_mesh_tick_equals_cpu_mesh_tick_on_card(cuda_device, body_mode):
     for a, b in zip(want, got):
         if a is not None:
             np.testing.assert_array_equal(a, b)
+
+
+async def _live_fleet(ingest, n: int) -> list:
+    """``n`` port clients against a fresh port server, each running an
+    op surface and a watcher sequence in its own subtree; returns each
+    client's observations as plain tuples."""
+    import asyncio
+
+    from zkstream_tpu_torch import Client, CreateFlag, ZKError
+    from zkstream_tpu_torch.server import ZKDatabase, ZKServer
+
+    async def until(cond):
+        for _ in range(3000):
+            if cond():
+                return
+            await asyncio.sleep(0.01)
+        raise AssertionError('condition never became true')
+
+    def st(s):
+        return (s.version, s.cversion, s.dataLength, s.numChildren)
+
+    async def work(c, root):
+        obs, events = [], []
+        w = c.watcher(root + '/w')
+        for evt in ('created', 'deleted', 'dataChanged'):
+            w.on(evt, lambda *a, _e=evt: events.append(_e))
+        await until(lambda: events)
+        obs.append(await c.create(root + '/w', b'v0'))
+        data, s = await c.get(root + '/w')
+        obs.append((data, st(s)))
+        obs.append(st(await c.set(root + '/w', b'v1' * 40)))
+        children, s = await c.list(root)
+        obs.append((sorted(children), st(s)))
+        obs.append(tuple((int(a.perms), a.id.scheme)
+                         for a in await c.get_acl(root + '/w')))
+        try:
+            await c.get(root + '/missing')
+        except ZKError as e:
+            obs.append(e.code)
+        obs.append(await c.create(root + '/q-', b'',
+                                  flags=CreateFlag.SEQUENTIAL))
+        await until(lambda: 'dataChanged' in events)
+        obs.append(events[:3])
+        return obs
+
+    srv = await ZKServer(db=ZKDatabase()).start()
+    clients = []
+    try:
+        if ingest is not None:
+            for bp in (8, 16, 32):
+                await ingest.prewarm(bp)
+        clients = [Client(address='127.0.0.1', port=srv.port,
+                          session_timeout=30000, ingest=ingest)
+                   for _ in range(n)]
+        for c in clients:
+            c.start()
+        await asyncio.gather(*[c.wait_connected(timeout=30)
+                               for c in clients])
+        await clients[0].create('/f', b'')
+        for i, c in enumerate(clients):
+            await c.create('/f/%d' % i, b'')
+        return await asyncio.gather(*[work(c, '/f/%d' % i)
+                                      for i, c in enumerate(clients)])
+    finally:
+        await asyncio.gather(*[c.close() for c in clients])
+        await srv.stop()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('body_mode', ['host', 'device'])
+def test_live_clients_drain_through_kernel_on_card(cuda_device, body_mode):
+    """Port clients against the port's server through one
+    ``FleetIngest(device='cuda')`` observe what the scalar drain gives,
+    and every device tick launches the body mode's kernel once."""
+    import asyncio
+
+    from zkstream_tpu_torch.io import FleetIngest
+
+    want = asyncio.run(_live_fleet(None, 24))
+    ing = FleetIngest(device='cuda', body_mode=body_mode, bypass_bytes=0,
+                      warm='block', max_frames=4)
+    k1, k2 = TW.launches, TK2.launches
+    got = asyncio.run(_live_fleet(ing, 24))
+    assert got == want
+    launched = (TW.launches - k1, TK2.launches - k2)
+    assert ing.ticks > 0 and ing.frames_routed > 0
+    assert launched == ((ing.ticks, 0) if body_mode == 'host'
+                        else (0, ing.ticks))
+    assert ing.ticks_scalar == ing.ticks_warming == ing.ticks_frag == 0
+    assert ing.body_fallbacks == 0

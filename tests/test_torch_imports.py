@@ -41,12 +41,34 @@ def test_every_module_is_found():
                  'zkstream_tpu_torch.parallel.seqscan',
                  'zkstream_tpu_torch.parallel.multihost',
                  'zkstream_tpu_torch.parallel.fleet',
-                 'zkstream_tpu_torch.corpus', 'zkstream_tpu_torch.entry'):
+                 'zkstream_tpu_torch.corpus', 'zkstream_tpu_torch.entry',
+                 'zkstream_tpu_torch.client',
+                 'zkstream_tpu_torch.utils.aio',
+                 'zkstream_tpu_torch.utils.events',
+                 'zkstream_tpu_torch.utils.fsm',
+                 'zkstream_tpu_torch.utils.trace',
+                 'zkstream_tpu_torch.utils.fdlimit',
+                 'zkstream_tpu_torch.utils.blackbox',
+                 'zkstream_tpu_torch.io.backoff',
+                 'zkstream_tpu_torch.io.transport',
+                 'zkstream_tpu_torch.io.sendplane',
+                 'zkstream_tpu_torch.io.overload',
+                 'zkstream_tpu_torch.io.connection',
+                 'zkstream_tpu_torch.io.watcher',
+                 'zkstream_tpu_torch.io.session',
+                 'zkstream_tpu_torch.io.pool',
+                 'zkstream_tpu_torch.io.cache',
+                 'zkstream_tpu_torch.io.ingress',
+                 'zkstream_tpu_torch.server',
+                 'zkstream_tpu_torch.server.persist',
+                 'zkstream_tpu_torch.server.store',
+                 'zkstream_tpu_torch.server.watchtable',
+                 'zkstream_tpu_torch.server.server'):
         assert name in mods
 
 
 @pytest.mark.parametrize('script', ['modules', 'chip_smoke', 'native',
-                                    'parallel'])
+                                    'parallel', 'client'])
 def test_imports_load_no_jax(script):
     if script == 'modules':
         body = 'import importlib\n' + ''.join(
@@ -57,6 +79,26 @@ def test_imports_load_no_jax(script):
                 'import zkstream_tpu_torch.ops.seq_walk\n'
                 'from zkstream_tpu_torch.entry import dryrun_multichip\n'
                 "dryrun_multichip(2, device='cpu')\n")
+    elif script == 'client':
+        # the client stack against the port's own server over TCP: one
+        # create and one get through a port Client, with the C tiers
+        body = ('import asyncio\n'
+                'from zkstream_tpu_torch import Client\n'
+                'from zkstream_tpu_torch.server import ZKServer\n'
+                'from zkstream_tpu_torch.utils import native\n'
+                'native.ensure_ext()\n'
+                'async def main():\n'
+                '    srv = await ZKServer().start()\n'
+                "    c = Client(address='127.0.0.1', port=srv.port)\n"
+                '    c.start()\n'
+                '    try:\n'
+                '        await c.wait_connected(timeout=10)\n'
+                "        await c.create('/x', b'v')\n"
+                "        assert (await c.get('/x'))[0] == b'v'\n"
+                '    finally:\n'
+                '        await c.close()\n'
+                '        await srv.stop()\n'
+                'asyncio.run(main())\n')
     elif script == 'native':
         # the host codec tier built, loaded and used: the C extension's
         # setup pulls in the port's records and consts only

@@ -203,7 +203,10 @@ def test_dryrun_multichip_on_cpu_shards():
 
     out = dryrun_multichip(4, device='cpu')
     assert out['frames'] > 0 and out['roundtripped'] == 1024 * 8
-    assert out['served'] == out['cadence_served'] == 192
+    # 8 live clients x (create + get), 4 through the cadence proxy (a
+    # keepalive ping reply may ride along)
+    assert out['served'] >= 16 and out['cadence_served'] >= 8
+    assert out['fleet_max_zxid'] == 8
     with pytest.raises(ValueError):
         dryrun_multichip(4, devices=CPU8)
 

@@ -1,25 +1,34 @@
-/* _zkwire_ext_torch: CPython-extension codec for the per-connection
- * receive hot path of zkstream_tpu_torch (the PyTorch/CUDA port).
+/* _zkwire_ext_torch: CPython-extension codec and transport calls for
+ * the per-connection hot paths of zkstream_tpu_torch (the PyTorch/CUDA
+ * port).
  *
- * This is the port's own copy of the codec half of native/zkwire_ext.c
- * (the JAX package's extension): setup, the reply and request decoders,
- * the encoders and abi_version.  The transport half (crc32c,
- * submit_writev, drain_recv, the io_uring calls) is not here: nothing
- * in the port uses it yet.  The module has a name and an ABI number of
- * its own, so both extensions can live in one process, each with its
- * own statics (the record classes and name tables setup() registers)
- * set up from its own package.
+ * This is the port's own copy of native/zkwire_ext.c (the JAX package's
+ * extension), in two halves:
  *
- * Why it exists: the pure-Python scalar decode spends most of its time
- * in jute primitive reads — per-field struct.unpack_from calls, bounds
- * checks, and dict/dataclass plumbing in protocol/{jute,records}.py.
- * Framing alone is cheap (the plain-C-ABI scanner in zkwire.cpp covers
- * it), so the profitable native boundary is the *whole* receive
- * transform: accumulated bytes -> list of packet dicts, in one C pass.
- * That is the same span the reference executes per socket read (frame
- * loop lib/zk-streams.js:39-99 + reply parse lib/zk-buffer.js:275-370).
- * FleetIngest (io/ingest.py) hands it each stream's frame-complete
- * slice after the device scan in body_mode='host'.
+ * - the codec: setup, the reply and request decoders, the encoders and
+ *   abi_version (described below);
+ * - the transport: crc32c (the write-ahead log's record checksum,
+ *   server/persist.py), submit_writev (the send plane's batched writes,
+ *   io/transport.py), drain_recv (the server's batched receive,
+ *   io/ingress.py) and the io_uring ring (uring_create / uring_submit /
+ *   uring_recv / uring_close; on a non-Linux build each raises ENOSYS).
+ *
+ * The module has a name and an ABI number of its own, so both
+ * extensions can live in one process, each with its own statics (the
+ * record classes and name tables setup() registers) set up from its own
+ * package.
+ *
+ * Why the codec exists: the pure-Python scalar decode spends most of its
+ * time in jute primitive reads — per-field struct.unpack_from calls,
+ * bounds checks, and dict/dataclass plumbing in
+ * protocol/{jute,records}.py.  Framing alone is cheap (the plain-C-ABI
+ * scanner in zkwire.cpp covers it), so the profitable native boundary is
+ * the *whole* receive transform: accumulated bytes -> list of packet
+ * dicts, in one C pass.  That is the same span the reference executes
+ * per socket read (frame loop lib/zk-streams.js:39-99 + reply parse
+ * lib/zk-buffer.js:275-370).  FleetIngest (io/ingest.py) hands it each
+ * stream's frame-complete slice after the device scan in
+ * body_mode='host'.
  *
  * Contract (mirrors PacketCodec.decode exactly; A/B-tested in
  * tests/test_torch_native_ext.py):
@@ -52,11 +61,20 @@
 #define PY_SSIZE_T_CLEAN
 #include <Python.h>
 
+#include <errno.h>
 #include <stdint.h>
 #include <string.h>
+#include <sys/socket.h>
+#include <sys/uio.h>
+#include <unistd.h>
+
+#ifdef __linux__
+#include <sys/mman.h>
+#include <sys/syscall.h>
+#endif
 
 /* the loader (utils/native.py _EXT_ABI_VERSION) rejects any other */
-#define ZKWIRE_EXT_TORCH_ABI 1
+#define ZKWIRE_EXT_TORCH_ABI 2
 
 /* ---- registered Python objects (held forever once set) ---- */
 
@@ -1271,12 +1289,848 @@ static PyObject *py_abi_version(PyObject *self, PyObject *noargs) {
   return PyLong_FromLong(ZKWIRE_EXT_TORCH_ABI);
 }
 
+/* CRC32C (Castagnoli, reflected 0x82F63B78) for the write-ahead-log
+ * record framing (server/persist.py).  Table-driven and
+ * portable; the pure-Python table walk is the spec and the fallback,
+ * A/B-tested equal in tests/test_torch_wal.py.  ~60x the Python loop on
+ * the ~100-byte record bodies the WAL appends per committed txn. */
+static uint32_t crc32c_table[256];
+
+static void crc32c_table_init(void) {
+  for (uint32_t i = 0; i < 256; i++) {
+    uint32_t c = i;
+    for (int k = 0; k < 8; k++)
+      c = (c & 1) ? (c >> 1) ^ 0x82F63B78u : c >> 1;
+    crc32c_table[i] = c;
+  }
+}
+
+static PyObject *py_crc32c(PyObject *self, PyObject *args) {
+  Py_buffer buf;
+  unsigned int seed = 0;
+  if (!PyArg_ParseTuple(args, "y*|I", &buf, &seed)) return NULL;
+  uint32_t c = seed ^ 0xFFFFFFFFu;
+  const unsigned char *p = (const unsigned char *)buf.buf;
+  Py_ssize_t n = buf.len;
+  for (Py_ssize_t i = 0; i < n; i++)
+    c = crc32c_table[(c ^ p[i]) & 0xFFu] ^ (c >> 8);
+  PyBuffer_Release(&buf);
+  return PyLong_FromUnsignedLong(c ^ 0xFFFFFFFFu);
+}
+
+/* ---- batched-syscall transport tier (io/transport.py) ----------------
+ *
+ * The deferred join-and-write boundary of the outbound plane: one C
+ * call per corked tick takes every dirty connection's frame list and
+ * moves the bytes to the kernel without materializing an intermediate
+ * joined Python bytes per connection.
+ *
+ *   submit_writev(fds, chunklists)     parallel arrays: fds[i] gets
+ *     -> [written_or_negative_errno, ...]   chunklists[i]; one
+ *        writev(2) per entry (vectored: the "join" is the iovec
+ *        array; flat arrays skip a tuple per entry on the hot path)
+ *
+ *   uring_create(depth) -> capsule          io_uring ring, or OSError
+ *   uring_submit(capsule, fds, chunklists)
+ *     -> ([sent_or_negative_errno, ...], enter_syscalls)
+ *        ONE chained SQE submission (IORING_OP_SENDMSG + MSG_DONTWAIT
+ *        per entry, iovec-joined) covering the whole batch; the call
+ *        submits and reaps synchronously, so buffer lifetimes are the
+ *        caller's references and per-fd ordering is submission order.
+ *   uring_close(capsule)
+ *
+ * The Python tier (io/transport.py) holds the fallback loop
+ * (os.writev per entry) and the capability probe; CPython ignores
+ * SIGPIPE, so a peer-reset socket surfaces as -EPIPE in the result
+ * slot, never a signal. */
+
+#define ZK_IOV_CAP 1024 /* IOV_MAX floor: writev waves per entry */
+
+#ifndef MSG_NOSIGNAL
+#define MSG_NOSIGNAL 0
+#endif
+
+/* One entry's vectored write: returns bytes written, or -errno when
+ * nothing was written.  Partial waves stop the loop (the caller
+ * re-routes the remainder through the asyncio transport).  The
+ * single-chunk case — the fan-out shape: one pre-joined notification
+ * batch per connection — takes send(2), which skips the kernel's
+ * iovec import; non-sockets fall through to writev. */
+static long long writev_chunks(int fd, struct iovec *iov,
+                               Py_ssize_t nch) {
+  if (nch == 1) {
+    ssize_t r;
+    do {
+      r = send(fd, iov[0].iov_base, iov[0].iov_len, MSG_NOSIGNAL);
+    } while (r < 0 && errno == EINTR);
+    if (r >= 0) return (long long)r;
+    if (errno != ENOTSOCK) return -(long long)errno;
+  }
+  long long written = 0;
+  Py_ssize_t base = 0;
+  while (base < nch) {
+    int cnt = (nch - base) > ZK_IOV_CAP ? ZK_IOV_CAP
+                                        : (int)(nch - base);
+    ssize_t r;
+    do {
+      r = writev(fd, iov + base, cnt);
+    } while (r < 0 && errno == EINTR);
+    if (r < 0) {
+      if (written == 0) return -(long long)errno;
+      break;
+    }
+    written += (long long)r;
+    long long wave = 0;
+    for (int k = 0; k < cnt; k++)
+      wave += (long long)iov[base + k].iov_len;
+    if ((long long)r < wave) break;
+    base += cnt;
+  }
+  return written;
+}
+
+/* Acquire one entry's chunk list as (Py_buffer[], iovec[]).  Returns
+ * the chunk count, or -1 with a Python error set.  *bufs_out buffers
+ * are acquired [0, count) and must be released by the caller. */
+static Py_ssize_t acquire_iov(PyObject *chunks, Py_buffer **bufs_out,
+                              struct iovec **iov_out,
+                              PyObject **fast_out) {
+  PyObject *cf = PySequence_Fast(chunks, "chunks must be a sequence");
+  if (!cf) return -1;
+  Py_ssize_t nch = PySequence_Fast_GET_SIZE(cf);
+  Py_buffer *bufs = PyMem_Malloc(sizeof(Py_buffer) * (nch ? nch : 1));
+  struct iovec *iov =
+      PyMem_Malloc(sizeof(struct iovec) * (nch ? nch : 1));
+  if (!bufs || !iov) {
+    PyMem_Free(bufs);
+    PyMem_Free(iov);
+    Py_DECREF(cf);
+    PyErr_NoMemory();
+    return -1;
+  }
+  for (Py_ssize_t j = 0; j < nch; j++) {
+    if (PyObject_GetBuffer(PySequence_Fast_GET_ITEM(cf, j), &bufs[j],
+                           PyBUF_SIMPLE) < 0) {
+      while (j-- > 0) PyBuffer_Release(&bufs[j]);
+      PyMem_Free(bufs);
+      PyMem_Free(iov);
+      Py_DECREF(cf);
+      return -1;
+    }
+    iov[j].iov_base = bufs[j].buf;
+    iov[j].iov_len = (size_t)bufs[j].len;
+  }
+  *bufs_out = bufs;
+  *iov_out = iov;
+  *fast_out = cf;
+  return nch;
+}
+
+static void release_iov(Py_buffer *bufs, struct iovec *iov,
+                        PyObject *fast, Py_ssize_t nch) {
+  for (Py_ssize_t j = 0; j < nch; j++) PyBuffer_Release(&bufs[j]);
+  PyMem_Free(bufs);
+  PyMem_Free(iov);
+  Py_DECREF(fast);
+}
+
+/* Chunk counts per connection per tick are tiny in steady state (a
+ * corked tick's frames arrive as ONE pre-joined plane flush, a
+ * fan-out adds one more): a stack-resident iovec covers the common
+ * case with zero allocation per connection. */
+#define ZK_STACK_IOV 8
+
+/* Fetch entry i of the parallel (fds, chunklists) batch arrays.
+ * Returns 0 on success with *fd_out / *chunks_out set, -1 with a
+ * Python error set. */
+static int batch_entry(PyObject *fds, PyObject *chunklists,
+                       Py_ssize_t i, int *fd_out,
+                       PyObject **chunks_out) {
+  long fd = PyLong_AsLong(PySequence_Fast_GET_ITEM(fds, i));
+  if (fd == -1 && PyErr_Occurred()) return -1;
+  *fd_out = (int)fd;
+  *chunks_out = PySequence_Fast_GET_ITEM(chunklists, i);
+  return 0;
+}
+
+static PyObject *py_submit_writev(PyObject *self, PyObject *args) {
+  PyObject *fds_obj, *cl_obj;
+  if (!PyArg_ParseTuple(args, "OO", &fds_obj, &cl_obj)) return NULL;
+  PyObject *fast = PySequence_Fast(fds_obj, "fds must be a sequence");
+  if (!fast) return NULL;
+  PyObject *clfast =
+      PySequence_Fast(cl_obj, "chunklists must be a sequence");
+  if (!clfast) {
+    Py_DECREF(fast);
+    return NULL;
+  }
+  Py_ssize_t n = PySequence_Fast_GET_SIZE(fast);
+  if (PySequence_Fast_GET_SIZE(clfast) != n) {
+    PyErr_SetString(PyExc_ValueError, "fds/chunklists length mismatch");
+    Py_DECREF(fast);
+    Py_DECREF(clfast);
+    return NULL;
+  }
+  PyObject *results = PyList_New(n);
+  if (!results) {
+    Py_DECREF(fast);
+    Py_DECREF(clfast);
+    return NULL;
+  }
+  for (Py_ssize_t i = 0; i < n; i++) {
+    int fd;
+    PyObject *chunks;
+    if (batch_entry(fast, clfast, i, &fd, &chunks) < 0) goto fail;
+    Py_buffer sbufs[ZK_STACK_IOV];
+    struct iovec siov[ZK_STACK_IOV];
+    Py_buffer *bufs = sbufs;
+    struct iovec *iov = siov;
+    PyObject *cf;
+    Py_ssize_t nch;
+    if (PyList_CheckExact(chunks)
+        && PyList_GET_SIZE(chunks) <= ZK_STACK_IOV) {
+      /* the hot path: small chunk list, stack arrays, no mallocs */
+      nch = PyList_GET_SIZE(chunks);
+      cf = NULL;
+      Py_ssize_t j;
+      for (j = 0; j < nch; j++) {
+        if (PyObject_GetBuffer(PyList_GET_ITEM(chunks, j), &bufs[j],
+                               PyBUF_SIMPLE) < 0)
+          break;
+        iov[j].iov_base = bufs[j].buf;
+        iov[j].iov_len = (size_t)bufs[j].len;
+      }
+      if (j < nch) {
+        while (j-- > 0) PyBuffer_Release(&bufs[j]);
+        goto fail;
+      }
+    } else {
+      nch = acquire_iov(chunks, &bufs, &iov, &cf);
+      if (nch < 0) goto fail;
+    }
+    long long res = nch ? writev_chunks(fd, iov, nch) : 0;
+    if (cf != NULL) {
+      release_iov(bufs, iov, cf, nch);
+    } else {
+      for (Py_ssize_t j = 0; j < nch; j++) PyBuffer_Release(&bufs[j]);
+    }
+    PyObject *val = PyLong_FromLongLong(res);
+    if (!val) goto fail;
+    PyList_SET_ITEM(results, i, val);
+  }
+  Py_DECREF(fast);
+  Py_DECREF(clfast);
+  return results;
+fail:
+  Py_DECREF(fast);
+  Py_DECREF(clfast);
+  Py_DECREF(results);
+  return NULL;
+}
+
+/* ---- batched receive drain (io/ingress.py) --------------------------
+ *
+ * The receive-direction twin of submit_writev: one C call per dirty
+ * ingress shard per tick takes the shard's readable fds and moves
+ * every connection's pending bytes out of the kernel — one recv(2)
+ * per fd inside the call (TCP has no cross-fd recvmmsg; the Python-
+ * level submission count is what drops to O(dirty shards)), zero
+ * per-fd Python dispatch, zero intermediate buffers.
+ *
+ *   drain_recv(fds, bufsize)
+ *     -> [bytes | -errno, ...]   per fd: the received bytes (b'' =
+ *        EOF, exactly what a StreamReader read returns at EOF), or
+ *        a negative errno (-EAGAIN = readiness raced an earlier
+ *        drain; the caller skips, never closes).
+ *
+ * Buffers are allocated at bufsize and resized down to the received
+ * length — the common short read costs one shrink, never a copy of
+ * bytes that were not received. */
+
+static PyObject *py_drain_recv(PyObject *self, PyObject *args) {
+  PyObject *fds_obj;
+  int bufsize;
+  if (!PyArg_ParseTuple(args, "Oi", &fds_obj, &bufsize)) return NULL;
+  if (bufsize <= 0) {
+    PyErr_SetString(PyExc_ValueError, "bufsize must be positive");
+    return NULL;
+  }
+  PyObject *fast = PySequence_Fast(fds_obj, "fds must be a sequence");
+  if (!fast) return NULL;
+  Py_ssize_t n = PySequence_Fast_GET_SIZE(fast);
+  PyObject *results = PyList_New(n);
+  if (!results) {
+    Py_DECREF(fast);
+    return NULL;
+  }
+  for (Py_ssize_t i = 0; i < n; i++) {
+    long fd = PyLong_AsLong(PySequence_Fast_GET_ITEM(fast, i));
+    if (fd == -1 && PyErr_Occurred()) goto fail;
+    PyObject *buf = PyBytes_FromStringAndSize(NULL, bufsize);
+    if (!buf) goto fail;
+    ssize_t r;
+    do {
+      r = recv((int)fd, PyBytes_AS_STRING(buf), (size_t)bufsize,
+               MSG_DONTWAIT);
+    } while (r < 0 && errno == EINTR);
+    if (r < 0 && errno == ENOTSOCK) {
+      /* non-socket fd (test double over a pipe): plain read — the
+       * caller's fds are already non-blocking */
+      do {
+        r = read((int)fd, PyBytes_AS_STRING(buf), (size_t)bufsize);
+      } while (r < 0 && errno == EINTR);
+    }
+    if (r < 0) {
+      Py_DECREF(buf);
+      PyObject *val = PyLong_FromLong(-(long)errno);
+      if (!val) goto fail;
+      PyList_SET_ITEM(results, i, val);
+      continue;
+    }
+    if (r < (ssize_t)bufsize && _PyBytes_Resize(&buf, r) < 0)
+      goto fail;
+    PyList_SET_ITEM(results, i, buf);
+  }
+  Py_DECREF(fast);
+  return results;
+fail:
+  Py_DECREF(fast);
+  Py_DECREF(results);
+  return NULL;
+}
+
+#ifdef __linux__
+
+/* io_uring ABI, declared locally: this image's kernel headers may
+ * predate io_uring entirely (the runtime probe decides availability,
+ * the build must always succeed).  Layouts are the stable v5.1 ABI. */
+
+#ifndef __NR_io_uring_setup
+#define __NR_io_uring_setup 425
+#endif
+#ifndef __NR_io_uring_enter
+#define __NR_io_uring_enter 426
+#endif
+
+#define ZK_IORING_OFF_SQ_RING 0ULL
+#define ZK_IORING_OFF_CQ_RING 0x8000000ULL
+#define ZK_IORING_OFF_SQES 0x10000000ULL
+#define ZK_IORING_ENTER_GETEVENTS 1u
+#define ZK_IORING_FEAT_SINGLE_MMAP 1u
+#define ZK_IORING_OP_SENDMSG 9
+
+#ifndef MSG_NOSIGNAL
+#define MSG_NOSIGNAL 0
+#endif
+
+struct zk_sqring_offsets {
+  uint32_t head, tail, ring_mask, ring_entries, flags, dropped, array,
+      resv1;
+  uint64_t resv2;
+};
+
+struct zk_cqring_offsets {
+  uint32_t head, tail, ring_mask, ring_entries, overflow, cqes;
+  uint64_t resv[2];
+};
+
+struct zk_uring_params {
+  uint32_t sq_entries, cq_entries, flags, sq_thread_cpu,
+      sq_thread_idle, features, wq_fd, resv[3];
+  struct zk_sqring_offsets sq_off;
+  struct zk_cqring_offsets cq_off;
+};
+
+struct zk_sqe { /* 64 bytes */
+  uint8_t opcode, flags;
+  uint16_t ioprio;
+  int32_t fd;
+  uint64_t off;
+  uint64_t addr;
+  uint32_t len;
+  uint32_t msg_flags;
+  uint64_t user_data;
+  uint64_t pad[3];
+};
+
+struct zk_cqe {
+  uint64_t user_data;
+  int32_t res;
+  uint32_t flags;
+};
+
+typedef struct {
+  int ring_fd;
+  uint64_t gen; /* submission generation: stamps user_data so a CQE
+                 * from an abandoned wave (enter failure after partial
+                 * completion) can never be attributed to a later
+                 * wave's entry */
+  unsigned sq_entries, cq_entries;
+  unsigned char *sq_ptr;
+  size_t sq_sz;
+  unsigned char *cq_ptr;
+  size_t cq_sz;
+  int single_mmap;
+  struct zk_sqe *sqes;
+  size_t sqes_sz;
+  unsigned *sq_head, *sq_tail, *sq_mask, *sq_array;
+  unsigned *cq_head, *cq_tail, *cq_mask;
+  struct zk_cqe *cqarr;
+} zk_uring;
+
+static void uring_free(zk_uring *u) {
+  if (!u) return;
+  if (u->sq_ptr && u->sq_ptr != MAP_FAILED) munmap(u->sq_ptr, u->sq_sz);
+  if (!u->single_mmap && u->cq_ptr && u->cq_ptr != MAP_FAILED)
+    munmap(u->cq_ptr, u->cq_sz);
+  if (u->sqes && (void *)u->sqes != MAP_FAILED)
+    munmap(u->sqes, u->sqes_sz);
+  if (u->ring_fd >= 0) close(u->ring_fd);
+  PyMem_Free(u);
+}
+
+static zk_uring uring_closed; /* sentinel: ring explicitly closed */
+
+static void uring_capsule_destroy(PyObject *cap) {
+  zk_uring *u = PyCapsule_GetPointer(cap, "zkwire.uring");
+  if (u && u != &uring_closed) uring_free(u);
+}
+
+static PyObject *py_uring_create(PyObject *self, PyObject *args) {
+  unsigned depth = 256;
+  if (!PyArg_ParseTuple(args, "|I", &depth)) return NULL;
+  struct zk_uring_params p;
+  memset(&p, 0, sizeof(p));
+  int fd = (int)syscall(__NR_io_uring_setup, depth, &p);
+  if (fd < 0) return PyErr_SetFromErrno(PyExc_OSError);
+  zk_uring *u = PyMem_Calloc(1, sizeof(zk_uring));
+  if (!u) {
+    close(fd);
+    return PyErr_NoMemory();
+  }
+  u->ring_fd = fd;
+  u->sq_entries = p.sq_entries;
+  u->cq_entries = p.cq_entries;
+  u->sq_sz = p.sq_off.array + p.sq_entries * sizeof(unsigned);
+  u->cq_sz = p.cq_off.cqes + p.cq_entries * sizeof(struct zk_cqe);
+  u->single_mmap = (p.features & ZK_IORING_FEAT_SINGLE_MMAP) != 0;
+  if (u->single_mmap) {
+    if (u->cq_sz > u->sq_sz) u->sq_sz = u->cq_sz;
+    u->cq_sz = u->sq_sz;
+  }
+  u->sq_ptr = mmap(NULL, u->sq_sz, PROT_READ | PROT_WRITE,
+                   MAP_SHARED | MAP_POPULATE, fd, ZK_IORING_OFF_SQ_RING);
+  u->cq_ptr = u->single_mmap
+                  ? u->sq_ptr
+                  : mmap(NULL, u->cq_sz, PROT_READ | PROT_WRITE,
+                         MAP_SHARED | MAP_POPULATE, fd,
+                         ZK_IORING_OFF_CQ_RING);
+  u->sqes_sz = p.sq_entries * sizeof(struct zk_sqe);
+  u->sqes = mmap(NULL, u->sqes_sz, PROT_READ | PROT_WRITE,
+                 MAP_SHARED | MAP_POPULATE, fd, ZK_IORING_OFF_SQES);
+  if (u->sq_ptr == MAP_FAILED || u->cq_ptr == MAP_FAILED ||
+      (void *)u->sqes == MAP_FAILED) {
+    PyErr_SetFromErrno(PyExc_OSError);
+    uring_free(u);
+    return NULL;
+  }
+  u->sq_head = (unsigned *)(u->sq_ptr + p.sq_off.head);
+  u->sq_tail = (unsigned *)(u->sq_ptr + p.sq_off.tail);
+  u->sq_mask = (unsigned *)(u->sq_ptr + p.sq_off.ring_mask);
+  u->sq_array = (unsigned *)(u->sq_ptr + p.sq_off.array);
+  u->cq_head = (unsigned *)(u->cq_ptr + p.cq_off.head);
+  u->cq_tail = (unsigned *)(u->cq_ptr + p.cq_off.tail);
+  u->cq_mask = (unsigned *)(u->cq_ptr + p.cq_off.ring_mask);
+  u->cqarr = (struct zk_cqe *)(u->cq_ptr + p.cq_off.cqes);
+  PyObject *cap =
+      PyCapsule_New(u, "zkwire.uring", uring_capsule_destroy);
+  if (!cap) uring_free(u);
+  return cap;
+}
+
+static zk_uring *uring_from_capsule(PyObject *cap) {
+  zk_uring *u = (zk_uring *)PyCapsule_GetPointer(cap, "zkwire.uring");
+  if (u == &uring_closed) {
+    PyErr_SetString(PyExc_ValueError, "uring already closed");
+    return NULL;
+  }
+  return u;
+}
+
+static PyObject *py_uring_submit(PyObject *self, PyObject *args) {
+  PyObject *cap, *fds_obj, *cl_obj;
+  if (!PyArg_ParseTuple(args, "OOO", &cap, &fds_obj, &cl_obj))
+    return NULL;
+  zk_uring *u = uring_from_capsule(cap);
+  if (!u) return NULL;
+  PyObject *fast = PySequence_Fast(fds_obj, "fds must be a sequence");
+  if (!fast) return NULL;
+  PyObject *clfast =
+      PySequence_Fast(cl_obj, "chunklists must be a sequence");
+  if (!clfast) {
+    Py_DECREF(fast);
+    return NULL;
+  }
+  Py_ssize_t n = PySequence_Fast_GET_SIZE(fast);
+  if (PySequence_Fast_GET_SIZE(clfast) != n) {
+    PyErr_SetString(PyExc_ValueError, "fds/chunklists length mismatch");
+    Py_DECREF(fast);
+    Py_DECREF(clfast);
+    return NULL;
+  }
+  PyObject *results = PyList_New(n);
+  if (!results) {
+    Py_DECREF(fast);
+    Py_DECREF(clfast);
+    return NULL;
+  }
+  long enters = 0;
+  Py_ssize_t done = 0;
+  while (done < n) {
+    Py_ssize_t wave = n - done;
+    if (wave > (Py_ssize_t)u->sq_entries) wave = u->sq_entries;
+    /* per-wave scratch: msghdr + acquired chunk buffers per entry */
+    struct msghdr *msgs = PyMem_Calloc(wave, sizeof(struct msghdr));
+    Py_buffer **bufsv = PyMem_Calloc(wave, sizeof(Py_buffer *));
+    struct iovec **iovv = PyMem_Calloc(wave, sizeof(struct iovec *));
+    PyObject **fastv = PyMem_Calloc(wave, sizeof(PyObject *));
+    Py_ssize_t *nchv = PyMem_Calloc(wave, sizeof(Py_ssize_t));
+    char *filled = PyMem_Calloc(wave, 1);
+    if (!msgs || !bufsv || !iovv || !fastv || !nchv || !filled) {
+      PyMem_Free(msgs);
+      PyMem_Free(bufsv);
+      PyMem_Free(iovv);
+      PyMem_Free(fastv);
+      PyMem_Free(nchv);
+      PyMem_Free(filled);
+      Py_DECREF(fast);
+      Py_DECREF(clfast);
+      Py_DECREF(results);
+      return PyErr_NoMemory();
+    }
+    int bad = 0;
+    int inflight = 0; /* wait-phase enter failure: submitted sends may
+                       * still run — the kernel reads their iovecs and
+                       * buffers, so the unreaped entries' resources
+                       * must be LEAKED, never released */
+    u->gen++;
+    unsigned tail = *u->sq_tail;
+    for (Py_ssize_t k = 0; k < wave; k++) {
+      int fd;
+      PyObject *chunks;
+      if (batch_entry(fast, clfast, done + k, &fd, &chunks) < 0) {
+        bad = 1;
+        break;
+      }
+      nchv[k] = acquire_iov(chunks, &bufsv[k], &iovv[k], &fastv[k]);
+      if (nchv[k] < 0) {
+        bad = 1;
+        break;
+      }
+      msgs[k].msg_iov = iovv[k];
+      msgs[k].msg_iovlen = (size_t)nchv[k];
+      unsigned slot = tail & *u->sq_mask;
+      struct zk_sqe *sqe = &u->sqes[slot];
+      memset(sqe, 0, sizeof(*sqe));
+      sqe->opcode = ZK_IORING_OP_SENDMSG;
+      sqe->fd = fd;
+      sqe->addr = (uint64_t)(uintptr_t)&msgs[k];
+      sqe->len = 1;
+      sqe->msg_flags = MSG_DONTWAIT | MSG_NOSIGNAL;
+      sqe->user_data = (u->gen << 20) | (uint64_t)k;
+      u->sq_array[slot] = slot;
+      tail++;
+    }
+    if (!bad) {
+      __atomic_store_n(u->sq_tail, tail, __ATOMIC_RELEASE);
+      /* ONE syscall: submit the whole wave and wait for all of its
+       * completions (MSG_DONTWAIT makes every send complete inline,
+       * -EAGAIN instead of punting to a poll wait) */
+      Py_ssize_t reaped = 0;
+      unsigned to_submit = (unsigned)wave;
+      int failed_errno = 0;
+      while (reaped < wave) {
+        int submit_phase = to_submit != 0;
+        long r;
+        do {
+          r = syscall(__NR_io_uring_enter, u->ring_fd, to_submit,
+                      (unsigned)(wave - reaped),
+                      ZK_IORING_ENTER_GETEVENTS, NULL, 0);
+        } while (r < 0 && errno == EINTR);
+        enters++;
+        if (r < 0) {
+          /* a failed SUBMIT enter consumed no SQEs — the caller may
+           * safely resend those entries elsewhere; a failed WAIT
+           * enter leaves already-submitted sends in flight, so the
+           * unfilled slots report EIO ("state unknown": resending
+           * could duplicate bytes, the caller must drop) */
+          failed_errno = submit_phase ? errno : EIO;
+          if (!submit_phase) inflight = 1;
+        }
+        to_submit = 0;
+        /* reap whatever is available — after an enter failure this is
+         * the best-effort pass that keeps real completions (and
+         * drains them so they cannot leak into the next wave) */
+        unsigned head = __atomic_load_n(u->cq_head, __ATOMIC_ACQUIRE);
+        unsigned ctail = __atomic_load_n(u->cq_tail, __ATOMIC_ACQUIRE);
+        while (head != ctail) {
+          struct zk_cqe *cqe = &u->cqarr[head & *u->cq_mask];
+          head++;
+          if ((cqe->user_data >> 20) != u->gen)
+            continue; /* stale generation: consume and ignore */
+          Py_ssize_t k = (Py_ssize_t)(cqe->user_data & 0xFFFFF);
+          if (k >= 0 && k < wave && !filled[k]) {
+            PyObject *val = PyLong_FromLongLong((long long)cqe->res);
+            if (val) PyList_SET_ITEM(results, done + k, val);
+            filled[k] = 1;
+            reaped++;
+          }
+        }
+        __atomic_store_n(u->cq_head, head, __ATOMIC_RELEASE);
+        if (failed_errno) {
+          /* entries the failed enter never submitted (or whose
+           * completions did not arrive) report the errno; slots a
+           * real CQE already filled keep their true result */
+          long long e = -(long long)failed_errno;
+          for (Py_ssize_t k = 0; k < wave; k++) {
+            if (filled[k]) continue;
+            PyObject *val = PyLong_FromLongLong(e);
+            if (val) PyList_SET_ITEM(results, done + k, val);
+            filled[k] = 2; /* errno-filled: possibly still in flight */
+          }
+          break;
+        }
+      }
+    }
+    for (Py_ssize_t k = 0; k < wave; k++)
+      /* an inflight wave's unreaped entries stay kernel-readable:
+       * leak their buffer views (and msgs below) rather than hand
+       * the kernel freed memory to send from */
+      if (fastv[k] && !(inflight && filled[k] == 2))
+        release_iov(bufsv[k], iovv[k], fastv[k], nchv[k]);
+    if (!inflight) PyMem_Free(msgs);
+    PyMem_Free(bufsv);
+    PyMem_Free(iovv);
+    PyMem_Free(fastv);
+    PyMem_Free(nchv);
+    PyMem_Free(filled);
+    if (bad) {
+      Py_DECREF(fast);
+      Py_DECREF(clfast);
+      Py_DECREF(results);
+      return NULL;
+    }
+    done += wave;
+  }
+  Py_DECREF(fast);
+  Py_DECREF(clfast);
+  return Py_BuildValue("(Nl)", results, enters);
+}
+
+/* Batched receive through the ring (io/ingress.py uring arm): one
+ * RECVMSG SQE per dirty connection, ONE enter submits and reaps the
+ * wave — O(1) syscalls per drain regardless of the dirty-set width.
+ * RECVMSG is the stable v5.1 ABI like the send side's SENDMSG; the
+ * multishot upgrade (IORING_RECV_MULTISHOT, >= 5.19/6.0 kernels:
+ * one standing SQE per connection, completions without resubmission)
+ * is declared below and carried until a kernel that has it can
+ * measure it — this image's 4.4 kernel gates the whole arm off at
+ * probe time anyway. */
+
+#define ZK_IORING_OP_RECVMSG 10
+#define ZK_IORING_RECV_MULTISHOT (1u << 1) /* sqe->ioprio flag */
+
+static PyObject *py_uring_recv(PyObject *self, PyObject *args) {
+  PyObject *cap, *fds_obj;
+  int bufsize;
+  if (!PyArg_ParseTuple(args, "OOi", &cap, &fds_obj, &bufsize))
+    return NULL;
+  if (bufsize <= 0) {
+    PyErr_SetString(PyExc_ValueError, "bufsize must be positive");
+    return NULL;
+  }
+  zk_uring *u = uring_from_capsule(cap);
+  if (!u) return NULL;
+  PyObject *fast = PySequence_Fast(fds_obj, "fds must be a sequence");
+  if (!fast) return NULL;
+  Py_ssize_t n = PySequence_Fast_GET_SIZE(fast);
+  PyObject *results = PyList_New(n);
+  if (!results) {
+    Py_DECREF(fast);
+    return NULL;
+  }
+  long enters = 0;
+  Py_ssize_t done = 0;
+  while (done < n) {
+    Py_ssize_t wave = n - done;
+    if (wave > (Py_ssize_t)u->sq_entries) wave = u->sq_entries;
+    struct msghdr *msgs = PyMem_Calloc(wave, sizeof(struct msghdr));
+    struct iovec *iov = PyMem_Calloc(wave, sizeof(struct iovec));
+    PyObject **bufv = PyMem_Calloc(wave, sizeof(PyObject *));
+    char *filled = PyMem_Calloc(wave, 1);
+    if (!msgs || !iov || !bufv || !filled) {
+      PyMem_Free(msgs);
+      PyMem_Free(iov);
+      PyMem_Free(bufv);
+      PyMem_Free(filled);
+      Py_DECREF(fast);
+      Py_DECREF(results);
+      return PyErr_NoMemory();
+    }
+    int bad = 0;
+    int inflight = 0; /* wait-phase enter failure: submitted recvs may
+                       * still complete — their buffers (and the
+                       * msghdr/iovec the SQEs point at) belong to the
+                       * kernel now and must be LEAKED, never freed,
+                       * or a late completion DMA-writes freed heap */
+    u->gen++;
+    unsigned tail = *u->sq_tail;
+    for (Py_ssize_t k = 0; k < wave; k++) {
+      long fd = PyLong_AsLong(PySequence_Fast_GET_ITEM(fast, done + k));
+      if (fd == -1 && PyErr_Occurred()) {
+        bad = 1;
+        break;
+      }
+      bufv[k] = PyBytes_FromStringAndSize(NULL, bufsize);
+      if (!bufv[k]) {
+        bad = 1;
+        break;
+      }
+      iov[k].iov_base = PyBytes_AS_STRING(bufv[k]);
+      iov[k].iov_len = (size_t)bufsize;
+      msgs[k].msg_iov = &iov[k];
+      msgs[k].msg_iovlen = 1;
+      unsigned slot = tail & *u->sq_mask;
+      struct zk_sqe *sqe = &u->sqes[slot];
+      memset(sqe, 0, sizeof(*sqe));
+      sqe->opcode = ZK_IORING_OP_RECVMSG;
+      sqe->fd = (int)fd;
+      sqe->addr = (uint64_t)(uintptr_t)&msgs[k];
+      sqe->len = 1;
+      sqe->msg_flags = MSG_DONTWAIT;
+      sqe->user_data = (u->gen << 20) | (uint64_t)k;
+      u->sq_array[slot] = slot;
+      tail++;
+    }
+    if (!bad) {
+      __atomic_store_n(u->sq_tail, tail, __ATOMIC_RELEASE);
+      Py_ssize_t reaped = 0;
+      unsigned to_submit = (unsigned)wave;
+      int failed_errno = 0;
+      while (reaped < wave) {
+        int submit_phase = to_submit != 0;
+        long r;
+        do {
+          r = syscall(__NR_io_uring_enter, u->ring_fd, to_submit,
+                      (unsigned)(wave - reaped),
+                      ZK_IORING_ENTER_GETEVENTS, NULL, 0);
+        } while (r < 0 && errno == EINTR);
+        enters++;
+        if (r < 0) {
+          /* same contract as uring_submit: a failed SUBMIT enter
+           * consumed no SQEs (the caller may retry elsewhere); a
+           * failed WAIT enter leaves recvs possibly in flight, so
+           * unfilled slots report EIO — their buffers were handed to
+           * the kernel and must not be reused */
+          failed_errno = submit_phase ? errno : EIO;
+          if (!submit_phase) inflight = 1;
+        }
+        to_submit = 0;
+        unsigned head = __atomic_load_n(u->cq_head, __ATOMIC_ACQUIRE);
+        unsigned ctail = __atomic_load_n(u->cq_tail, __ATOMIC_ACQUIRE);
+        while (head != ctail) {
+          struct zk_cqe *cqe = &u->cqarr[head & *u->cq_mask];
+          head++;
+          if ((cqe->user_data >> 20) != u->gen)
+            continue; /* stale generation: consume and ignore */
+          Py_ssize_t k = (Py_ssize_t)(cqe->user_data & 0xFFFFF);
+          if (k >= 0 && k < wave && !filled[k]) {
+            PyObject *val;
+            if (cqe->res < 0) {
+              val = PyLong_FromLong((long)cqe->res);
+              Py_CLEAR(bufv[k]);
+            } else {
+              val = bufv[k];
+              bufv[k] = NULL;
+              if (cqe->res < bufsize &&
+                  _PyBytes_Resize(&val, cqe->res) < 0) {
+                PyErr_Clear();
+                val = PyLong_FromLong(-(long)ENOMEM);
+              }
+            }
+            if (val) PyList_SET_ITEM(results, done + k, val);
+            filled[k] = 1;
+            reaped++;
+          }
+        }
+        __atomic_store_n(u->cq_head, head, __ATOMIC_RELEASE);
+        if (failed_errno) {
+          long e = -(long)failed_errno;
+          for (Py_ssize_t k = 0; k < wave; k++) {
+            if (filled[k]) continue;
+            PyObject *val = PyLong_FromLong(e);
+            if (val) PyList_SET_ITEM(results, done + k, val);
+            filled[k] = 1;
+          }
+          break;
+        }
+      }
+    }
+    if (!inflight) {
+      /* normal wave: every CQE reaped (or nothing was submitted) —
+       * slots still in bufv are ours to drop */
+      for (Py_ssize_t k = 0; k < wave; k++) Py_XDECREF(bufv[k]);
+      PyMem_Free(msgs);
+      PyMem_Free(iov);
+    }
+    /* inflight: leak bufv[k] objects + msgs/iov (kernel-owned); the
+     * bookkeeping arrays below were never handed to the kernel */
+    PyMem_Free(bufv);
+    PyMem_Free(filled);
+    if (bad) {
+      Py_DECREF(fast);
+      Py_DECREF(results);
+      return NULL;
+    }
+    done += wave;
+  }
+  Py_DECREF(fast);
+  return Py_BuildValue("(Nl)", results, enters);
+}
+
+static PyObject *py_uring_close(PyObject *self, PyObject *args) {
+  PyObject *cap;
+  if (!PyArg_ParseTuple(args, "O", &cap)) return NULL;
+  zk_uring *u = (zk_uring *)PyCapsule_GetPointer(cap, "zkwire.uring");
+  if (!u) return NULL;
+  if (u != &uring_closed) {
+    /* point the capsule at the sentinel first so the destructor (or
+     * a second close) can never double-free */
+    if (PyCapsule_SetPointer(cap, &uring_closed) < 0) return NULL;
+    uring_free(u);
+  }
+  Py_RETURN_NONE;
+}
+
+#else /* !__linux__ */
+
+static PyObject *py_uring_unsupported(PyObject *self, PyObject *args) {
+  errno = ENOSYS;
+  return PyErr_SetFromErrno(PyExc_OSError);
+}
+#define py_uring_create py_uring_unsupported
+#define py_uring_submit py_uring_unsupported
+#define py_uring_recv py_uring_unsupported
+#define py_uring_close py_uring_unsupported
+
+#endif /* __linux__ */
+
 static PyMethodDef methods[] = {
     {"setup", py_setup, METH_VARARGS,
      "setup(Stat, ACL, Id, Perm, CreateFlag, err_names, notif_types, "
      "states, layouts, req_opcodes, op_names, err_codes, notif_codes, "
      "state_codes, op_codes) — see native.ext_setup_args() for the "
-     "canonical argument tuple"},
+     "canonical argument builder"},
     {"decode_responses", py_decode_responses, METH_VARARGS,
      "decode_responses(buf, xid_map, max_packet) -> "
      "(pkts, consumed, err_kind, err_msg)"},
@@ -1287,6 +2141,27 @@ static PyMethodDef methods[] = {
      "encode_request(pkt) -> framed bytes, or None to fall back"},
     {"encode_response", py_encode_response, METH_VARARGS,
      "encode_response(pkt) -> framed bytes, or None to fall back"},
+    {"crc32c", py_crc32c, METH_VARARGS,
+     "crc32c(data, crc=0) -> CRC32C (Castagnoli) of data, chainable"},
+    {"submit_writev", py_submit_writev, METH_VARARGS,
+     "submit_writev(fds, chunklists) -> [written|-errno, ...] — one "
+     "vectored write per entry, join-free (parallel arrays)"},
+    {"uring_create", py_uring_create, METH_VARARGS,
+     "uring_create(depth=256) -> capsule (OSError when io_uring is "
+     "unavailable)"},
+    {"uring_submit", py_uring_submit, METH_VARARGS,
+     "uring_submit(ring, fds, chunklists) -> "
+     "([sent|-errno, ...], enter_syscalls) — one chained submission "
+     "covering the whole batch"},
+    {"drain_recv", py_drain_recv, METH_VARARGS,
+     "drain_recv(fds, bufsize) -> [bytes|-errno, ...] — one receive "
+     "per fd in ONE C call (b'' = EOF; -EAGAIN = nothing pending)"},
+    {"uring_recv", py_uring_recv, METH_VARARGS,
+     "uring_recv(ring, fds, bufsize) -> "
+     "([bytes|-errno, ...], enter_syscalls) — one chained RECVMSG "
+     "submission covering the whole dirty set"},
+    {"uring_close", py_uring_close, METH_VARARGS,
+     "uring_close(ring) — unmap and close the ring fd"},
     {"abi_version", py_abi_version, METH_NOARGS, "native ABI version"},
     {NULL, NULL, 0, NULL}};
 
@@ -1295,6 +2170,7 @@ static struct PyModuleDef moduledef = {
     "C codec for the zkstream_tpu_torch receive hot path", -1, methods};
 
 PyMODINIT_FUNC PyInit__zkwire_ext_torch(void) {
+  crc32c_table_init();
   s_xid = PyUnicode_InternFromString("xid");
   s_zxid = PyUnicode_InternFromString("zxid");
   s_err = PyUnicode_InternFromString("err");

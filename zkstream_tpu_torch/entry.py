@@ -59,9 +59,10 @@ def dryrun_multichip(n_devices: int, device='cuda', devices=None) -> dict:
     raises otherwise (pass ``devices=`` to put several shards on one
     card); ``'cpu'`` runs the plain versions.  Checks that the
     dp-sharded step is bit-equal to the single-device step, the u64 max
-    and totals, the roundtrip and the sp scan, then serves a small fleet
-    of stand-in connections through ``MeshFleetIngest`` and
-    ``MultihostFleetIngest``.  Returns the counts it checked.
+    and totals, the roundtrip and the sp scan, then serves small fleets
+    of live clients (``Client``) against an in-process ``ZKServer`` through
+    ``MeshFleetIngest`` and ``MultihostFleetIngest``, each fleet max
+    equal to the sessions' largest zxid.  Returns the counts it checked.
     """
     import torch
 
@@ -130,13 +131,14 @@ def dryrun_multichip(n_devices: int, device='cuda', devices=None) -> dict:
         torch.from_numpy(one[0]).to(first), int(one_len[0]))
     assert int(nframes) > 0 and not bool(bad)
 
-    # the runtime consumers: a live stand-in fleet through the
-    # mesh-sharded tick and through the fixed-cadence multihost proxy
-    # (single process), every packet equal to the scalar drain's and
-    # the fleet max equal to the largest reply zxid delivered
+    # the runtime consumers: a LIVE connection fleet served through
+    # the mesh-sharded tick (MeshFleetIngest) and through the
+    # fixed-cadence multihost proxy (MultihostFleetIngest, single
+    # process), each against the in-process server with the collective
+    # reductions checked against the sessions' scalar-side checkpoints
     fleet_mesh = make_mesh(dp=n_devices, sp=1, devices=devices)
-    served, fleet_zxid = _dryrun_fleet(fleet_mesh, cadence=False)
-    cadence_served, _z = _dryrun_fleet(fleet_mesh, cadence=True)
+    served, fleet_zxid = _dryrun_live_mesh_fleet(fleet_mesh)
+    cadence_served = _dryrun_cadence_fleet(fleet_mesh)
     print(f'dryrun_multichip({n_devices}): mesh dp={dp} sp={sp} on '
           f'{[str(d) for d in devices]} OK — {total} frames dp-decoded over '
           f'{B} streams (bit-equal to single-device), {int(rtotal)} '
@@ -148,79 +150,82 @@ def dryrun_multichip(n_devices: int, device='cuda', devices=None) -> dict:
             'fleet_max_zxid': fleet_zxid, 'cadence_served': cadence_served}
 
 
-class _StandIn:
-    """A connection as the fleet ingest sees it: a codec, a state and
-    the ``ingestDeliver`` event (the port has no client stack yet)."""
-
-    def __init__(self, codec):
-        self.codec = codec
-        self.got: list = []
-        self.err = None
-
-    def is_in_state(self, state: str) -> bool:
-        return state == 'connected' and self.err is None
-
-    def emit(self, event: str, pkts, err) -> None:
-        assert event == 'ingestDeliver', event
-        self.got.extend(pkts)
-        if err is not None:
-            self.err = err
-
-
-def _dryrun_fleet(mesh, cadence: bool):
-    """Serve 12 corpus streams, fed in two halves, through
-    ``MeshFleetIngest`` (``cadence=False``) or ``MultihostFleetIngest``
-    on ``mesh``; returns ``(frames served, fleet max zxid)``."""
-    from .corpus import fleet
-    from .parallel import MeshFleetIngest, MultihostFleetIngest
-    from .protocol.framing import PacketCodec
-
-    buf, _lens, _slots, maps = fleet(B=12, seed=3, frames=16)
-    streams = [r.tobytes() for r in buf]
-
-    def codec(m):
-        c = PacketCodec(use_native=False)
-        c.handshaking = False
-        c.xid_map.update(m)
-        return c
-
-    want = [codec(m).decode(s) for s, m in zip(streams, maps)]
-    conns = [_StandIn(codec(m)) for m in maps]
-    dp = mesh.shape['dp']
-    if cadence:
-        ing = MultihostFleetIngest(
-            mesh=mesh, local_rows=-(-len(conns) // dp) * dp,
-            stream_len=4096, tick_interval=0.005, body_mode='host',
-            max_frames=4)
-    else:
-        ing = MeshFleetIngest(mesh=mesh, body_mode='host', max_frames=4,
-                              min_len=1024, warm='block')
+def _dryrun_live_mesh_fleet(mesh):
+    """Serve a small live client fleet through ``MeshFleetIngest`` on
+    ``mesh``; returns ``(frames_served, fleet_max_zxid)``."""
+    from .client import Client
+    from .parallel import MeshFleetIngest
+    from .server import ZKServer
 
     async def run():
-        if cadence:
-            ing.warmup_tick()
-            ing.start()
-        for c in conns:
-            ing.register(c)
-        for half in (0, 1):
-            for c, s in zip(conns, streams):
-                cut = len(s) // 2
-                ing.feed(c, s[:cut] if half == 0 else s[cut:])
-            await asyncio.sleep(0)
-        loop = asyncio.get_running_loop()
-        deadline = loop.time() + 60.0
-        while (getattr(ing, '_scheduled', False)
-               or any(b for _c, b in ing._slots.values())):
-            assert loop.time() < deadline, 'fleet did not drain'
-            await asyncio.sleep(0.001)
-        if cadence:
-            await ing.stop(after_ticks=ing.tick_count + 1)
-            assert ing.launch_count == ing.tick_count
+        ingest = MeshFleetIngest(mesh=mesh, body_mode='host',
+                                 max_frames=4, min_len=1024,
+                                 warm='block')
+        srv = await ZKServer().start()
+        await ingest.prewarm(8)
+        clients = [Client(address='127.0.0.1', port=srv.port,
+                          ingest=ingest, session_timeout=8000)
+                   for _ in range(8)]
+        for c in clients:
+            c.start()
+        try:
+            await asyncio.gather(*[c.wait_connected(timeout=10)
+                                   for c in clients])
+            for i, c in enumerate(clients):
+                await c.create('/d%d' % i, b'x%d' % i)
+            for i, c in enumerate(clients):
+                data, _stat = await c.get('/d%d' % i)
+                assert data == b'x%d' % i
+            assert ingest.ticks > 0 and ingest.ticks_warming == 0
+            assert ingest.fleet_max_zxid == max(
+                c.session.last_zxid for c in clients), \
+                'fleet pmax != session checkpoints'
+            return ingest.frames_routed, ingest.fleet_max_zxid
+        finally:
+            await asyncio.gather(*[c.close() for c in clients])
+            await srv.stop()
 
-    asyncio.run(run())
-    for c, w in zip(conns, want):
-        assert c.err is None and c.got == w, 'mesh ingest != scalar drain'
-    assert ing.ticks > 0 and ing.ticks_scalar == 0
-    best = max(p['zxid'] for c in conns for p in c.got if p['xid'] >= 0)
-    assert ing.fleet_max_zxid == best, 'fleet max != delivered max'
-    return ing.frames_routed, ing.fleet_max_zxid
+    return asyncio.run(run())
+
+
+def _dryrun_cadence_fleet(mesh) -> int:
+    """One pass of the multi-controller fleet proxy (single-process
+    degenerate: the same fixed-cadence collective tick, process count
+    1); returns frames served."""
+    from .client import Client
+    from .parallel import MultihostFleetIngest
+    from .server import ZKServer
+
+    async def run():
+        dp = mesh.shape['dp']
+        # capacity must divide over the dp axis whatever n is
+        rows = ((max(8, dp) + dp - 1) // dp) * dp
+        proxy = MultihostFleetIngest(
+            mesh=mesh, local_rows=rows, stream_len=2048,
+            tick_interval=0.005, body_mode='host', max_frames=4)
+        srv = await ZKServer().start()
+        proxy.warmup_tick()
+        clients = [Client(address='127.0.0.1', port=srv.port,
+                          ingest=proxy, session_timeout=8000)
+                   for _ in range(4)]
+        for c in clients:
+            c.start()
+        proxy.start()
+        try:
+            await asyncio.gather(*[c.wait_connected(timeout=10)
+                                   for c in clients])
+            for i, c in enumerate(clients):
+                await c.create('/cad%d' % i, b'y%d' % i)
+            for i, c in enumerate(clients):
+                data, _stat = await c.get('/cad%d' % i)
+                assert data == b'y%d' % i
+            assert proxy.ticks > 0
+            assert proxy.fleet_max_zxid == max(
+                c.session.last_zxid for c in clients)
+            return proxy.frames_routed
+        finally:
+            await proxy.stop()
+            await asyncio.gather(*[c.close() for c in clients])
+            await srv.stop()
+
+    return asyncio.run(run())

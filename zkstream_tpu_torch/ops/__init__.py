@@ -19,21 +19,22 @@
   without the GET_DATA bodies.
 """
 
-from .bodies import slice_frame_bodies  # noqa: F401
-from .bytesops import (  # noqa: F401
+from .bodies import slice_frame_bodies
+from .bytesops import (
     be_i32_at,
     be_i64pair_at,
     u64pair_lt,
     u64pair_max,
     u64pair_reduce_max,
 )
-from .encode import build_reply_streams  # noqa: F401
-from .frame_scan import (  # noqa: F401
+from .encode import build_reply_streams
+from .frame_scan import (
+    MAX_PACKET,
     frame_cursor_scan,
     frame_starts_pointer_doubling,
 )
-from .headers import parse_reply_headers, stream_stats  # noqa: F401
-from .pipeline import (  # noqa: F401
+from .headers import parse_reply_headers, stream_stats
+from .pipeline import (
     GetDataBodies,
     WireStats,
     batch_to_device,
@@ -44,12 +45,45 @@ from .pipeline import (  # noqa: F401
     wire_pipeline_step_kernel,
     wirestats_to_numpy,
 )
-from .replies import (  # noqa: F401
+from .replies import (
     ListBodies,
     ReplyBodies,
     StatPlanes,
     parse_list_bodies,
     parse_reply_bodies,
     parse_stats,
+    slice_var_bytes,
     stat_from_planes,
 )
+
+__all__ = [
+    'slice_frame_bodies',
+    'be_i32_at',
+    'be_i64pair_at',
+    'u64pair_lt',
+    'u64pair_max',
+    'u64pair_reduce_max',
+    'build_reply_streams',
+    'MAX_PACKET',
+    'frame_cursor_scan',
+    'frame_starts_pointer_doubling',
+    'parse_reply_headers',
+    'stream_stats',
+    'GetDataBodies',
+    'WireStats',
+    'batch_to_device',
+    'getdata_bodies',
+    'wire_full_decode',
+    'wire_pipeline_step',
+    'wire_pipeline_step_auto',
+    'wire_pipeline_step_kernel',
+    'wirestats_to_numpy',
+    'ListBodies',
+    'ReplyBodies',
+    'StatPlanes',
+    'parse_list_bodies',
+    'parse_reply_bodies',
+    'parse_stats',
+    'slice_var_bytes',
+    'stat_from_planes',
+]

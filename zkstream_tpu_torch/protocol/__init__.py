@@ -15,6 +15,8 @@ from .consts import (  # noqa: F401
 from .errors import (  # noqa: F401
     ZKError,
     ZKFrameTooLargeError,
+    ZKNotConnectedError,
+    ZKPingTimeoutError,
     ZKProtocolError,
 )
 from .framing import FrameDecoder, PacketCodec, frame  # noqa: F401

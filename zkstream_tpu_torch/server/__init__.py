@@ -1,0 +1,22 @@
+"""In-process ZooKeeper server: data model, wire server, write-ahead
+log and watch table (the port's own copy of ``zkstream_tpu.server``,
+one member; the replication and election planes come with the
+ensemble)."""
+
+from .persist import (  # noqa: F401
+    WriteAheadLog,
+    attach_wal,
+    open_wal_database,
+    recover_state,
+    scan_dir,
+)
+from .server import ServerConnection, ZKEnsemble, ZKServer  # noqa: F401
+from .watchtable import WatchTable, watchtable_default  # noqa: F401
+from .store import (  # noqa: F401
+    NodeTree,
+    ReplicaStore,
+    ZKDatabase,
+    ZKOpError,
+    ZKServerSession,
+    Znode,
+)

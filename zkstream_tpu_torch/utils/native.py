@@ -181,12 +181,20 @@ def ensure_lib() -> ctypes.CDLL | None:
 # -- CPython-extension codec (csrc/zkwire_ext.c) ----------------------
 #
 # Separate artifact from the C-ABI scanner: it links against the
-# interpreter ABI (Python.h) and decodes whole accumulation buffers into
-# packet dicts (framing + bodies in one C pass), loaded with the same
-# version-named-artifact / background-build discipline.
+# interpreter ABI (Python.h), decodes whole accumulation buffers into
+# packet dicts (framing + bodies in one C pass) and carries the
+# transport calls, loaded with the same version-named-artifact /
+# background-build discipline.
 
 _EXT_NAME = '_zkwire_ext_torch'
-_EXT_ABI_VERSION = 1
+_EXT_ABI_VERSION = 2
+
+#: The extension's transport calls (ABI 2 on): the WAL checksum, the
+#: send plane's batched writes, the server's batched receive and the
+#: io_uring ring (io/transport.py, io/ingress.py, server/persist.py).
+EXT_TRANSPORT_CALLS = ('crc32c', 'submit_writev', 'drain_recv',
+                       'uring_create', 'uring_submit', 'uring_recv',
+                       'uring_close')
 
 _ext = None
 _ext_load_failed = False

@@ -148,6 +148,41 @@ Phases (any failure exits non-zero; nothing is caught):
    p50/p99 by op kind, the fan-out time, the mean tick and its device
    half.  Last, ``entry.dryrun_multichip(4, devices=[cuda:0] * 4)``
    serves its live fleets through both mesh ingests on the card.
+13. The ensemble under a leader SIGKILL: three runs, each on a fresh
+   ensemble of three port member processes (``ProcMember`` spawning
+   ``server/member_worker.py``; election and quorum commit on, a WAL
+   each in a temporary directory), with 1,024 port ``Client``s spread
+   across the members (the scalar drain; one shared
+   ``FleetIngest(device='cuda', bypass_bytes=0, warm='block',
+   max_frames=4)`` with host bodies, then device bodies), with the
+   redial delays of the process-tier schedules (100 ms growing to 1 s,
+   in monitor mode too; 10 s a dial) and a 120 s session.  Each client
+   writes its own ``/f/<i>`` and watches ``/b``, and the fleet's heap
+   is then frozen out of the collector's reach; then phase 12's mixed
+   workload (8 gets of ``/b``, 4 sets of its own node, 2 creates under
+   it, interleaved), and when half the fleet's ops are done the leader
+   ``find_leader`` names gets SIGKILL.  An op felled by the failover is
+   retried until it completes on the survivors (its latency runs from
+   the first attempt).  Then one ``set('/b')`` through a client of the
+   new leader.  Printed per run: time to elect, time until every
+   session is connected again with its old id, expired sessions (must
+   be 0), ops/s and p50/p99 by op before and after the kill, the
+   fan-out time to 1,024 watchers, the mean tick and its device half,
+   the launch counts and each survivor's ``zk_elections_total``.
+   Gates: every acknowledged write reads back from the new leader,
+   every watcher fired exactly once (and not before the set), the
+   fleet's histories (one per client, and the elections) pass the
+   port's ``check_history`` against the tree recovered from the new
+   leader's WAL, K1 launches equal the host-body run's device ticks
+   and K2's the device-body run's (the other kernel 0), and no body
+   falls back to the scalar reader.  The device-body run also runs
+   ``python -m zkstream_tpu_torch -s <new leader> --codec ingest get
+   /f/0`` as a subprocess, which must exit 0.  Last, the seeded
+   campaigns on the card: ``run_ensemble_schedule`` over the first 8
+   seeds from 0 whose ``FaultPlan`` drives a batch-regime ingest and
+   ``run_concurrent_schedule(clients=3)`` over the first 4 of them,
+   ``device='cuda'``: every schedule ``ok``, K1 launches equal to the
+   ingests' device ticks.
 
 The last lines are the card's name and power limit, one JSON object of
 kernels, and ``{"ok": true, "device": {...}}``.  Without a CUDA device
@@ -991,6 +1026,566 @@ def _live_phase(W, K2, smi: str) -> dict:
     return runs
 
 
+# -- phase 13: the ensemble under a leader SIGKILL --------------------
+
+#: The interleaved op sequence each phase-13 client runs: phase 12's
+#: mixed workload (8 gets, 4 sets, 2 creates a client), with the sets on
+#: the client's own node so no watcher of /b fires before the failover
+ENS_SEQUENCE = ('get', 'get', 'set', 'create', 'get', 'get', 'set',
+                'get', 'get', 'set', 'create', 'get', 'get', 'set')
+#: first seeds from 0 whose plan drives a batch-regime FleetIngest
+#: (``FaultPlan.randomized(seed).ingest_mode == 'batch'``)
+ENS_CAMPAIGN_SEEDS = 8
+ENS_CONCURRENT_SEEDS = 4
+
+
+async def _ens_op(c, kind: str, i: int, k: int, h, rec: list, errs: list,
+                  kill: list, AMBIGUOUS, ZKError, ZKProtocolError) -> None:
+    """One workload op of client ``i`` (its ``k``-th), retried through
+    the failover until it completes: the latency is from its first
+    attempt to its success, what the user waits.  Only the failover's
+    outcome-unknown errors (``AMBIGUOUS``: a lost connection, which is
+    also what ``ZKNotConnectedError`` carries, a ping or deadline
+    timeout) and ``EPOCH_FENCED`` are retried, and only once the leader
+    has been killed (``kill[0]``, the loop time of the SIGKILL): any
+    other error, and any error at all before the kill, is raised.  Each
+    retried error goes into ``errs`` as (loop time, code).  Every
+    attempt that fails outcome-unknown is recorded as ambiguous in the
+    client's history ``h``; a success is recorded as acked."""
+    sid = c.session.session_id
+    own = '/f/%d' % (i,)
+    path = '%s/c%d' % (own, k) if kind == 'create' else own
+    data = b'v%d' % (k,)
+    loop = asyncio.get_running_loop()
+    t0 = loop.time()
+    tried = False
+    while True:
+        try:
+            if kind == 'get':
+                await asyncio.wait_for(c.get('/b'), LIVE_TIMEOUT)
+            elif kind == 'set':
+                stat = await asyncio.wait_for(c.set(own, data),
+                                              LIVE_TIMEOUT)
+                h.op('SET_DATA', own, 'ok', zxid=stat.mzxid,
+                     session_id=sid)
+                h.acked_set(own, k, sid, zxid=stat.mzxid)
+            else:
+                await asyncio.wait_for(c.create(path, b''), LIVE_TIMEOUT)
+                h.acked_create(path, b'', sid)
+            break
+        except (ZKError, ZKProtocolError) as e:
+            if kind == 'create' and e.code == 'NODE_EXISTS' and tried:
+                # the earlier, outcome-unknown attempt applied
+                h.acked_create(path, b'', sid)
+                break
+            now = loop.time()
+            if kill[0] is None or now < kill[0]:
+                raise AssertionError(
+                    'phase 13: client %d %s failed before the leader was '
+                    'killed: %r' % (i, kind, e)) from e
+            fenced = e.code == 'EPOCH_FENCED'
+            if e.code not in AMBIGUOUS and not fenced:
+                raise
+            errs.append((now, e.code))
+            # a fenced write was never applied; the rest may have been
+            if kind != 'get' and not fenced:
+                h.ambiguous(kind, path, session_id=sid)
+        tried = True
+        if c.is_connected():
+            await asyncio.sleep(0.05)
+        else:
+            # wait for the redial rather than spin 1,024 failing ops on
+            # the loop that must carry the reconnections
+            await c.wait_connected(timeout=LIVE_TIMEOUT, fail_fast=False)
+    rec.append((kind, loop.time(), (loop.time() - t0) * 1000.0))
+
+
+def _ens_ops(recs: list, t0: float, t_kill: float, t_end: float) -> dict:
+    """ops/s and p50/p99 by kind, before and after the kill (an op is on
+    the side its completion fell)."""
+    out = {}
+    for side, after, dt in (('before', False, t_kill - t0),
+                            ('after', True, t_end - t_kill)):
+        for kind in ('get', 'set', 'create'):
+            lat = [ms for k, t, ms in recs
+                   if k == kind and (t >= t_kill) == after]
+            p50, p99 = _pcts(lat) if lat else (float('nan'),) * 2
+            out['%s %s' % (kind, side)] = {
+                'ops_per_sec': len(lat) / max(dt, 1e-9), 'p50_ms': p50,
+                'p99_ms': p99, 'ops': len(lat)}
+    return out
+
+
+async def _ensemble_serve(ingest, n: int, what: str, pauses,
+                          cli_check: bool) -> dict:
+    """One phase-13 run: a fresh three-process port ensemble (election
+    and quorum commit on, a WAL each), ``n`` port clients through
+    ``ingest`` (None: the scalar drain) spread across the members, the
+    mixed workload with the elected leader SIGKILLed halfway, the
+    post-failover fan-out, and the gates."""
+    import shutil
+    import tempfile
+
+    from zkstream_tpu_torch import Client
+    from zkstream_tpu_torch.io.backoff import BackoffPolicy
+    from zkstream_tpu_torch.io.invariants import (AMBIGUOUS_CODES, History,
+                                                  check_history)
+    from zkstream_tpu_torch.protocol.errors import ZKError, ZKProtocolError
+    from zkstream_tpu_torch.server.election import (ProcMember, _scrape_mntr,
+                                                    allocate_ports,
+                                                    find_leader)
+    from zkstream_tpu_torch.server.persist import recover_state
+    from zkstream_tpu_torch.server.store import ZKDatabase
+
+    loop = asyncio.get_running_loop()
+    out: dict = {}
+    lag = [0.0]
+    t_run = loop.time()
+
+    def step(name: str) -> None:
+        _log('# phase 13 (%s) %s done at %.2f s: longest loop lag %.3f s, '
+             'collector pauses %.3f s (longest %.3f s)'
+             % (what, name, loop.time() - t_run, lag[0], pauses.s,
+                pauses.max))
+
+    root = tempfile.mkdtemp(prefix='zkchip13-')
+    ports = allocate_ports(6)
+    fleet = [ProcMember(i, os.path.join(root, 'm%d' % i), ports[2 * i],
+                        ports[2 * i + 1]) for i in range(3)]
+    monitor = loop.create_task(_lag_monitor(lag))
+    clients: list = []
+    try:
+        t0 = loop.time()
+        for m in fleet:
+            m.spawn(fleet)
+        for m in fleet:
+            await m.wait_ready()
+        leader, epoch = await find_leader(fleet, min_epoch=1)
+        out['spawn_s'] = loop.time() - t0
+        step('spawn (leader %d at epoch %d)' % (leader, epoch))
+        if ingest is not None:
+            bp = 8
+            while bp <= n:
+                for nb in (None, 512, 1024):
+                    await ingest.prewarm(bp, nb)
+                bp *= 2
+        addrs = [('127.0.0.1', m.client_port) for m in fleet]
+        t0 = loop.time()
+        # the process tier's redial delays (election.py
+        # run_process_schedule), in monitor mode too: a session that
+        # lost its member redials within a second, where the defaults
+        # back off towards 30 s while the survivors elect.  A dial is
+        # given 10 s, not 2: a dead member refuses at once, and a live
+        # one answers behind this loop's lags of several seconds
+        redial = BackoffPolicy(timeout=10000, retries=4, delay=100,
+                               cap=1000)
+        clients = [Client(servers=addrs[i % 3:] + addrs[:i % 3],
+                          shuffle_backends=False,
+                          session_timeout=LIVE_SESSION_TIMEOUT_MS,
+                          ingest=ingest, use_native_codec=True,
+                          connect_policy=redial, default_policy=redial)
+                   for i in range(n)]
+        expired = [0] * n
+        # connection edges: a session that detaches once the fleet is
+        # connected and before the kill fails the run (nothing but the
+        # kill may drop a connection); after the kill, who lost its
+        # member, and when it was attached again
+        kill = [None]
+        armed = [False]
+        early: list = []
+        lost = [0] * n
+        back = [0.0] * n
+
+        def on_disconnect(i):
+            if kill[0] is not None:
+                lost[i] = 1
+            elif armed[0]:
+                early.append(i)
+
+        def on_connect(i):
+            if kill[0] is not None:
+                back[i] = loop.time()
+        for i, c in enumerate(clients):
+            c.on('expire', lambda _i=i: expired.__setitem__(_i, 1))
+            c.on('disconnect', lambda _i=i: on_disconnect(_i))
+            c.on('connect', lambda _i=i: on_connect(_i))
+            c.start()
+        # fail_fast=False: a client whose first dials time out keeps
+        # dialing (monitor mode) rather than fail the wait
+        await asyncio.gather(*[c.wait_connected(timeout=LIVE_TIMEOUT,
+                                                fail_fast=False)
+                               for c in clients])
+        out['connect_s'] = loop.time() - t0
+        armed[0] = True
+        if any(c.current_connection().ingest is not ingest
+               for c in clients):
+            raise AssertionError('a connection does not drain through the '
+                                 'run\'s ingest')
+        sids = [c.session.session_id for c in clients]
+        on_leader = sum(c.current_connection().backend.port
+                        == fleet[leader].client_port for c in clients)
+        step('connect (%d sessions on the leader)' % (on_leader,))
+
+        # 1. every client writes its own /f/<i> and watches /b
+        hs = [History() for _ in range(n)]
+        await clients[0].create('/f', b'')
+        await clients[0].create('/b', b'x' * 64)
+        made = await asyncio.gather(*[c.create('/f/%d' % (i,), b'')
+                                      for i, c in enumerate(clients)])
+        for i, p in enumerate(made):
+            hs[i].acked_create(p, b'', sids[i])
+        # arming a dataChanged watch on an existing node emits once (the
+        # arming read): wait those out; from then on a fire is a change
+        fired = [0] * n
+        target = [loop.create_future()]
+
+        def on_fire(i, data, stat):
+            fired[i] += 1
+            hs[i].watch_fire('/b', 'dataChanged', stat.mzxid)
+            if all(fired) and not target[0].done():
+                target[0].set_result(None)
+        for i, c in enumerate(clients):
+            c.watcher('/b').on('dataChanged',
+                               lambda d, s, _i=i: on_fire(_i, d, s))
+        await asyncio.wait_for(target[0], LIVE_TIMEOUT)
+        await asyncio.sleep(0.2)
+        fired[:] = [0] * n
+        for h in hs:      # the arming reads are not changes of /b
+            h.records[:] = [r for r in h.records if r['kind'] != 'watch']
+        # the fleet's long-lived state (clients, sessions, watchers) out
+        # of the collector's reach from here, as a serving process would
+        # freeze its heap after start-up (phase 12 leaves it unfrozen);
+        # main() unfreezes after the phase
+        gc.collect()
+        gc.freeze()
+        step('create + watch')
+
+        # 2-4. the mixed workload, the leader SIGKILLed halfway
+        recs: list = []
+        errs: list = []
+        half = n * len(ENS_SEQUENCE) // 2
+        halfway = loop.create_future()
+        done = [0]
+
+        async def client_run(i, c):
+            for k, kind in enumerate(ENS_SEQUENCE):
+                await _ens_op(c, kind, i, k, hs[i], recs, errs, kill,
+                              AMBIGUOUS_CODES, ZKError, ZKProtocolError)
+                done[0] += 1
+                if done[0] >= half and not halfway.done():
+                    halfway.set_result(None)
+
+        t_work = loop.time()
+        work = asyncio.gather(*[client_run(i, c)
+                                for i, c in enumerate(clients)])
+        # an op that fails before halfway ends the run with its error
+        await asyncio.wait([halfway, work], timeout=LIVE_TIMEOUT,
+                           return_when=asyncio.FIRST_COMPLETED)
+        if work.done():
+            await work
+        if not halfway.done():
+            raise AssertionError('phase 13 (%s): the workload did not reach '
+                                 'halfway in %.0f s' % (what, LIVE_TIMEOUT))
+        if early:
+            raise AssertionError(
+                'phase 13 (%s): %d sessions detached before the leader was '
+                'killed (first: client %d)' % (what, len(early), early[0]))
+        t_kill = kill[0] = loop.time()
+        fleet[leader].kill()
+        new_leader, new_epoch = await find_leader(
+            [m for m in fleet if m.member_id != leader],
+            min_epoch=epoch + 1, timeout=LIVE_TIMEOUT)
+        out['elect_s'] = loop.time() - t_kill
+        step('election (member %d at epoch %d)' % (new_leader, new_epoch))
+
+        async def resumed():
+            # one poller for the fleet, not one a client
+            while not all(c.is_connected() and (not lost[i] or back[i])
+                          for i, c in enumerate(clients)):
+                await asyncio.sleep(0.02)
+            return max([back[i] for i in range(n) if lost[i]]
+                       or [loop.time()])
+        t_back = await asyncio.wait_for(resumed(), LIVE_TIMEOUT)
+        out['resume_s'] = t_back - t_kill
+        out['reconnected'] = sum(lost)
+        await asyncio.wait_for(work, LIVE_TIMEOUT)
+        t_end = loop.time()
+        out['ops'] = _ens_ops(recs, t_work, t_kill, t_end)
+        # _ens_op raises on an error before the kill, so the first count
+        # is 0 on every run that gets here; both are printed
+        out['errors_before'] = sum(t < t_kill for t, _code in errs)
+        out['errors_after'] = len(errs) - out['errors_before']
+        out['error_codes'] = sorted(set(code for _t, code in errs))
+        out['expired'] = sum(expired) + sum(
+            c.session.session_id != s for c, s in zip(clients, sids))
+        if out['expired']:
+            raise AssertionError('phase 13 (%s): %d sessions expired or '
+                                 'were replaced' % (what, out['expired']))
+        step('workload (errors: %d before the kill, %d after it, retried: '
+             '%s)' % (out['errors_before'], out['errors_after'],
+                      ', '.join(out['error_codes']) or 'none'))
+
+        # 5. one set on the new leader, fanned out to every watcher (the
+        # watches re-armed on the survivors; /b has not changed since)
+        await asyncio.sleep(0.5)
+        if any(fired):
+            raise AssertionError('phase 13 (%s): %d watchers fired before '
+                                 'the post-failover set' % (what,
+                                                            sum(fired)))
+        fan = target[0] = loop.create_future()
+        writer = Client(servers=[addrs[new_leader]],
+                        session_timeout=LIVE_SESSION_TIMEOUT_MS)
+        writer.start()
+        try:
+            await writer.wait_connected(timeout=LIVE_TIMEOUT)
+            t0 = loop.time()
+            await writer.set('/b', b'z' * 64)
+            await asyncio.wait_for(fan, LIVE_TIMEOUT)
+            out['fanout_ms'] = (loop.time() - t0) * 1000.0
+            await asyncio.sleep(0.5)    # re-arm reads land; none re-fires
+            twice = [i for i, f in enumerate(fired) if f != 1]
+            if twice:
+                raise AssertionError(
+                    'phase 13 (%s) fan-out: %d watchers fired other than '
+                    'once (first: client %d, %d times)' % (
+                        what, len(twice), twice[0], fired[twice[0]]))
+            step('fan-out')
+
+            # every acknowledged write reads back from the new leader
+            await writer.sync('/')
+            want = {}
+            for h in hs:
+                for r in h.of_kind('ack'):
+                    if r['op'] == 'create':
+                        want.setdefault(r['path'], b'')
+                    elif r['op'] == 'set':
+                        want[r['path']] = b'v%d' % (r['index'],)
+            paths = sorted(want)
+            got = await asyncio.gather(*[writer.get(p) for p in paths])
+            missing = [p for p, (d, _s) in zip(paths, got)
+                       if bytes(d) != want[p]]
+            if missing:
+                raise AssertionError(
+                    'phase 13 (%s): %d acknowledged writes do not read '
+                    'back from the new leader (first %s: %r)' % (
+                        what, len(missing), missing[0], want[missing[0]]))
+            out['acked'] = len(paths)
+            step('read-back of %d acknowledged writes' % (len(paths),))
+        finally:
+            await writer.close()
+
+        # the fleet's histories against the new leader's recovered tree
+        rec = recover_state(fleet[new_leader].wal_dir)
+        rdb = ZKDatabase()
+        rdb.nodes, rdb.zxid = rec.nodes, rec.zxid
+        eh = History()
+        eh.election(leader, epoch)
+        eh.election(new_leader, new_epoch)
+        viol = check_history(eh, rdb)
+        for i, h in enumerate(hs):
+            viol += ['client %d: %s' % (i, v) for v in check_history(h, rdb)]
+        if viol:
+            raise AssertionError('phase 13 (%s): check_history: %d '
+                                 'violations, first %s'
+                                 % (what, len(viol), viol[0]))
+        step('check_history on the recovered tree')
+        out['elections'] = {}
+        for m in fleet:
+            if m.alive():
+                rows = await _scrape_mntr(m.client_port,
+                                          timeout=LIVE_TIMEOUT)
+                out['elections'][m.member_id] = int(
+                    rows.get('zk_elections_total', -1))
+        if cli_check:
+            out['cli'] = await loop.run_in_executor(
+                None, _cli_get, addrs[new_leader][1], want['/f/0'])
+        out['lag_s'] = lag[0]
+        out['leader'], out['new_leader'] = leader, new_leader
+        out['on_leader'] = on_leader
+    finally:
+        monitor.cancel()
+        t0 = loop.time()
+        await asyncio.gather(*[c.close() for c in clients])
+        for m in fleet:
+            m.kill()
+        shutil.rmtree(root, ignore_errors=True)
+        out['teardown_s'] = loop.time() - t0
+    return out
+
+
+def _cli_get(port: int, want: bytes) -> float:
+    """``python -m zkstream_tpu_torch -s <member> --codec ingest get
+    /f/0`` as a subprocess (on the card, the CLI's default device): it
+    must exit 0 and print the node's data.  Returns its wall seconds."""
+    t0 = time.perf_counter()
+    r = subprocess.run(
+        [sys.executable, '-m', 'zkstream_tpu_torch', '-s',
+         '127.0.0.1:%d' % (port,), '--codec', 'ingest', 'get', '/f/0'],
+        cwd=os.path.dirname(os.path.abspath(__file__)),
+        capture_output=True, timeout=120)
+    if r.returncode != 0 or r.stdout.rstrip(b'\n') != want:
+        raise AssertionError('phase 13 CLI get exited %d, printed %r '
+                             '(want %r); stderr %r' % (
+                                 r.returncode, r.stdout, want,
+                                 r.stderr[-2000:]))
+    return time.perf_counter() - t0
+
+
+class _IngestsMade:
+    """While installed, every ``FleetIngest`` the port builds (the
+    campaigns build theirs inside the schedule) is kept in ``made``.
+    The hook wraps the class's own ``__init__``, so it sees every
+    instance whatever module imported the class, and where."""
+
+    def __enter__(self):
+        from zkstream_tpu_torch.io.ingest import FleetIngest
+
+        init = self._init = FleetIngest.__init__
+        made = self.made = []
+
+        def kept(ing, *a, **kw):
+            init(ing, *a, **kw)
+            made.append(ing)
+        FleetIngest.__init__ = kept
+        return self
+
+    def __exit__(self, *exc):
+        from zkstream_tpu_torch.io.ingest import FleetIngest
+
+        FleetIngest.__init__ = self._init
+
+
+def _campaigns(W, K2, smi: str, device: str = 'cuda') -> dict:
+    """The seeded ensemble campaigns on the card: ``run_ensemble_schedule``
+    over the first seeds whose plan drives a batch-regime ingest, and
+    ``run_concurrent_schedule(clients=3)`` over the first of them."""
+    from zkstream_tpu_torch.io.faults import (FaultPlan,
+                                              run_concurrent_schedule,
+                                              run_ensemble_schedule)
+
+    seeds = []
+    s = 0
+    while len(seeds) < ENS_CAMPAIGN_SEEDS:
+        if FaultPlan.randomized(s).ingest_mode == 'batch':
+            seeds.append(s)
+        s += 1
+    out = {}
+    for name, fn, ss in (
+            ('run_ensemble_schedule', run_ensemble_schedule, seeds),
+            ('run_concurrent_schedule(clients=3)',
+             lambda seed, device: run_concurrent_schedule(
+                 seed, clients=3, device=device),
+             seeds[:ENS_CONCURRENT_SEEDS])):
+        W.launches = K2.launches = 0
+        t0 = time.perf_counter()
+        with _IngestsMade() as kept:
+            results = [asyncio.run(fn(seed, device=device)) for seed in ss]
+        bad = [(r.seed, r.violations) for r in results if not r.ok]
+        if bad:
+            raise AssertionError('phase 13 %s: schedules not ok: %r'
+                                 % (name, bad))
+        ticks = sum(ing.ticks for ing in kept.made)
+        if not kept.made or W.launches != ticks or K2.launches:
+            raise AssertionError(
+                'phase 13 %s: %d ingests, %d device ticks, K1 %d and K2 %d '
+                'launches' % (name, len(kept.made), ticks, W.launches,
+                              K2.launches))
+        out[name] = {'seeds': ss, 'ticks': ticks, 'k1': W.launches,
+                     'wall_s': time.perf_counter() - t0}
+        _log('# phase 13 campaign %s on %s: seeds %s all ok; %d ingests, '
+             '%d device ticks = %d K1 launches, 0 K2; %.2f s' % (
+                 name, smi, ss, len(kept.made), ticks, W.launches,
+                 out[name]['wall_s']))
+    return out
+
+
+def _ensemble_phase(W, K2, smi: str, device: str = 'cuda',
+                    n: int = LIVE_CLIENTS) -> dict:
+    """Phase 13: three runs on a fresh three-process port ensemble each
+    (scalar drain, host bodies through K1, device bodies through K2),
+    the leader SIGKILLed mid-workload, then the seeded campaigns."""
+    import torch
+
+    from zkstream_tpu_torch.io.ingest import FleetIngest
+
+    t_phase = time.perf_counter()
+    runs: dict = {}
+    for mode in ('scalar', 'host', 'device'):
+        ing = None
+        if mode != 'scalar':
+            ing = FleetIngest(device=device, body_mode=mode,
+                              bypass_bytes=0, warm='block', max_frames=4)
+        step_s: list = []
+        if ing is not None:
+            _timed(ing, step_s)
+        if device == 'cuda':
+            torch.cuda.synchronize()
+        W.launches = K2.launches = 0
+        t0 = time.perf_counter()
+        with _GcPauses() as pauses:
+            out = asyncio.run(_ensemble_serve(ing, n, mode, pauses,
+                                              cli_check=mode == 'device'))
+        wall = time.perf_counter() - t0
+        out['k1'], out['k2'] = W.launches, K2.launches
+        runs[mode] = out
+        line = ('# phase 13 (%s) on %s: 3 member processes up and a leader '
+                'in %.3f s; %d clients connected in %.3f s (%d on the '
+                'leader, member %d); leader SIGKILLed halfway: elected '
+                'member %d in %.3f s, the %d sessions that lost their '
+                'member back with their old ids in %.3f s, %d expired; ' % (
+                    mode, smi, out['spawn_s'], n, out['connect_s'],
+                    out['on_leader'], out['leader'], out['new_leader'],
+                    out['elect_s'], out['reconnected'], out['resume_s'],
+                    out['expired']))
+        line += '; '.join(
+            '%s %.1f ops/s p50 %.3f ms p99 %.3f ms (%d ops)' % (
+                k, v['ops_per_sec'], v['p50_ms'], v['p99_ms'], v['ops'])
+            for k, v in out['ops'].items())
+        line += ('; op errors before the kill %d (0 detaches), after it %d '
+                 '(retried: %s); post-failover fan-out to %d watchers %.3f '
+                 'ms, each fired once; %d acknowledged writes read back '
+                 'from the new leader; check_history clean on %d client '
+                 'histories against its recovered tree; zk_elections_total '
+                 'by member %s' % (
+                     out['errors_before'], out['errors_after'],
+                     ', '.join(out['error_codes']) or 'none', n,
+                     out['fanout_ms'], out['acked'], n, out['elections']))
+        if ing is not None:
+            want_k1 = ing.ticks if mode == 'host' else 0
+            want_k2 = ing.ticks if mode == 'device' else 0
+            if not (ing.ticks > 0 and out['k1'] == want_k1
+                    and out['k2'] == want_k2 and ing.frames_routed > 0
+                    and ing.body_fallbacks == 0):
+                raise AssertionError(
+                    'phase 13 (%s): ticks %d (scalar %d, warming %d, frag '
+                    '%d), frames routed %d, body fallbacks %d; K1 %d, K2 %d '
+                    'launches' % (mode, ing.ticks, ing.ticks_scalar,
+                                  ing.ticks_warming, ing.ticks_frag,
+                                  ing.frames_routed, ing.body_fallbacks,
+                                  out['k1'], out['k2']))
+            out['tick_ms'] = (ing.tick_hist.sum()
+                              / max(ing.tick_hist.count(), 1))
+            out['device_ms'] = sum(step_s) * 1e3 / max(len(step_s), 1)
+            line += ('; %d device ticks = %d %s launches (0 %s), %d frames '
+                     'routed, 0 body fallbacks; mean tick %.3f ms, of which '
+                     'the device half %.3f ms' % (
+                         ing.ticks, ing.ticks,
+                         'K1' if mode == 'host' else 'K2',
+                         'K2' if mode == 'host' else 'K1',
+                         ing.frames_routed, out['tick_ms'],
+                         out['device_ms']))
+        if 'cli' in out:
+            line += ('; `python -m zkstream_tpu_torch --codec ingest get '
+                     '/f/0` exited 0 in %.2f s' % (out['cli'],))
+        _log(line + '; longest loop lag %.3f s; collector pauses %.3f s; '
+             'teardown %.2f s; run wall %.2f s' % (
+                 out['lag_s'], pauses.s, out['teardown_s'], wall))
+        out['wall_s'] = wall
+    camp = _campaigns(W, K2, smi, device)
+    _log('# phase 13 wall %.2f s' % (time.perf_counter() - t_phase))
+    return {'runs': runs, 'campaigns': camp}
+
+
 def main() -> int:
     import torch
 
@@ -1637,6 +2232,14 @@ def main() -> int:
     _log('# phase 12 dryrun_multichip(4) on %s, live fleets through both '
          'mesh ingests: %s; %.2f s' % (smi, dry, time.perf_counter() - t0))
 
+    # -- 13. the ensemble under a leader SIGKILL, then the campaigns --
+    gc.collect()
+    gc.freeze()
+    try:
+        ens = _ensemble_phase(W, K2, smi)
+    finally:
+        gc.unfreeze()
+
     # -- report --
     kernels = [{
         'name': 'K1 wire_scan (frame scan + reply-header parse)',
@@ -1662,7 +2265,13 @@ def main() -> int:
             'phase 10 MeshFleetIngest host bodies': mesh_runs['host']['k1'],
             'phase 11 MultihostFleetIngest': mh['k1'],
             'phase 12 live Clients, FleetIngest host bodies':
-                live['host']['k1']},
+                live['host']['k1'],
+            'phase 13 ensemble leader SIGKILL, FleetIngest host bodies':
+                ens['runs']['host']['k1'],
+            'phase 13 run_ensemble_schedule campaign':
+                ens['campaigns']['run_ensemble_schedule']['k1'],
+            'phase 13 run_concurrent_schedule(clients=3) campaign':
+                ens['campaigns']['run_concurrent_schedule(clients=3)']['k1']},
     }, {
         'name': 'K2 full_scan (K1 + GET_DATA body words)',
         'route': 'cuda',
@@ -1686,7 +2295,9 @@ def main() -> int:
             'phase 10 MeshFleetIngest device bodies':
                 mesh_runs['device']['k2'],
             'phase 12 live Clients, FleetIngest device bodies':
-                live['device']['k2']},
+                live['device']['k2'],
+            'phase 13 ensemble leader SIGKILL, FleetIngest device bodies':
+                ens['runs']['device']['k2']},
     }, {
         'name': 'seq_walk (the sequence-parallel scan\'s chunk walk)',
         'route': 'cuda',

@@ -4,19 +4,24 @@ test/basic.test.js).  Every case that talks to a server runs twice, on
 the port's in-process ``ZKServer`` and on the JAX package's, on the same
 dials: the port's client must behave the same against both.
 
-The ``server_cls`` and ``server`` fixtures here are shared by the
-port's other server-facing suites (tests/test_torch_*.py import them).
+The ``server_cls``, ``server`` and ``ensemble_cls`` fixtures here are
+shared by the port's other server-facing suites (tests/test_torch_*.py
+import them).
 """
 
 import asyncio
+import importlib
 
 import pytest
 
+from zkstream_tpu.server import ZKEnsemble as RefZKEnsemble
 from zkstream_tpu.server import ZKServer as RefZKServer
 from zkstream_tpu_torch import Client, CreateFlag, ZKError, ZKNotConnectedError
+from zkstream_tpu_torch.server import ZKEnsemble as PortZKEnsemble
 from zkstream_tpu_torch.server import ZKServer as PortZKServer
 
 SERVERS = {'port': PortZKServer, 'reference': RefZKServer}
+ENSEMBLES = {'port': PortZKEnsemble, 'reference': RefZKEnsemble}
 
 
 @pytest.fixture(params=sorted(SERVERS))
@@ -24,6 +29,23 @@ def server_cls(request):
     """The server class a server-facing case runs against: the port's
     ``ZKServer`` or the JAX package's."""
     return SERVERS[request.param]
+
+
+@pytest.fixture(params=sorted(ENSEMBLES))
+def ensemble_cls(request):
+    """The in-process ensemble class a case runs against: the port's
+    ``ZKEnsemble`` or the JAX package's (the clients are the port's
+    either way)."""
+    return ENSEMBLES[request.param]
+
+
+def pkg_attr(obj, dotted: str):
+    """``dotted`` (e.g. ``'server.store.ZKOpError'``) from the package
+    ``obj``'s class belongs to: what a server-side raise of the port's
+    or the reference's ensemble is an instance of."""
+    pkg = type(obj).__module__.split('.')[0]
+    mod, _, name = dotted.rpartition('.')
+    return getattr(importlib.import_module(pkg + '.' + mod), name)
 
 
 @pytest.fixture

@@ -452,3 +452,78 @@ def test_live_clients_drain_through_kernel_on_card(cuda_device, body_mode):
                         else (0, ing.ticks))
     assert ing.ticks_scalar == ing.ticks_warming == ing.ticks_frag == 0
     assert ing.body_fallbacks == 0
+
+
+async def _ensemble_failover(ingest, n: int) -> dict:
+    """``n`` port clients through ``ingest`` on the in-process port
+    ``ZKEnsemble(3)``: each writes its own node, the leader member is
+    killed, a successor is elected, and every client writes again on the
+    survivors with its old session."""
+    import asyncio
+
+    from zkstream_tpu_torch import Client
+    from zkstream_tpu_torch.io.invariants import AMBIGUOUS_CODES
+    from zkstream_tpu_torch.protocol.errors import ZKError, ZKProtocolError
+    from zkstream_tpu_torch.server import ZKEnsemble
+
+    ens = await ZKEnsemble(3, heartbeat_ms=30, seed=1).start()
+    clients = [Client(servers=ens.addresses(), shuffle_backends=False,
+                      session_timeout=20000, ingest=ingest)
+               for _ in range(n)]
+    expired = []
+    try:
+        for i, c in enumerate(clients):
+            c.on('expire', lambda _i=i: expired.append(_i))
+            c.start()
+        await asyncio.gather(*[c.wait_connected(timeout=20)
+                               for c in clients])
+        sids = [c.session.session_id for c in clients]
+        await asyncio.gather(*[c.create('/n%d' % i, b'v0')
+                               for i, c in enumerate(clients)])
+        elected = asyncio.get_running_loop().create_future()
+        ens.election.on('elected', lambda m, e, d: (
+            not elected.done() and elected.set_result((m, e))))
+        await ens.kill(ens.leader_idx)
+        member, epoch = await asyncio.wait_for(elected, 20)
+
+        async def again(i, c):
+            # only the failover's outcome-unknown errors are retried
+            for _ in range(100):
+                try:
+                    return await c.set('/n%d' % i, b'v1')
+                except (ZKError, ZKProtocolError) as e:
+                    if (e.code not in AMBIGUOUS_CODES
+                            and e.code != 'EPOCH_FENCED'):
+                        raise
+                    await asyncio.sleep(0.1)
+            raise AssertionError('client %d never wrote again' % (i,))
+        await asyncio.gather(*[again(i, c) for i, c in enumerate(clients)])
+        got = [bytes((await c.get('/n%d' % i))[0])
+               for i, c in enumerate(clients)]
+        return {'epoch': epoch, 'got': got, 'expired': expired,
+                'same_sessions': [c.session.session_id for c in clients]
+                == sids}
+    finally:
+        await asyncio.gather(*[c.close() for c in clients])
+        await ens.stop()
+
+
+@pytest.mark.cuda
+def test_ensemble_leader_kill_through_kernel_on_card(cuda_device):
+    """Port clients through one ``FleetIngest(device='cuda')`` ride a
+    leader kill on the in-process port ensemble: a successor is
+    elected, no session expires, every write after the failover lands,
+    and every device tick launched K1 once (K2 never)."""
+    import asyncio
+
+    from zkstream_tpu_torch.io import FleetIngest
+
+    ing = FleetIngest(device='cuda', body_mode='host', bypass_bytes=0,
+                      warm='block', max_frames=4)
+    k1, k2 = TW.launches, TK2.launches
+    out = asyncio.run(_ensemble_failover(ing, 24))
+    assert out['epoch'] >= 1
+    assert out['expired'] == [] and out['same_sessions']
+    assert out['got'] == [b'v1'] * 24
+    assert ing.ticks > 0 and ing.frames_routed > 0
+    assert (TW.launches - k1, TK2.launches - k2) == (ing.ticks, 0)

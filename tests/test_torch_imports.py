@@ -63,7 +63,23 @@ def test_every_module_is_found():
                  'zkstream_tpu_torch.server.persist',
                  'zkstream_tpu_torch.server.store',
                  'zkstream_tpu_torch.server.watchtable',
-                 'zkstream_tpu_torch.server.server'):
+                 'zkstream_tpu_torch.server.server',
+                 'zkstream_tpu_torch.server.replication',
+                 'zkstream_tpu_torch.server.election',
+                 'zkstream_tpu_torch.server.member_worker',
+                 'zkstream_tpu_torch.io.faults',
+                 'zkstream_tpu_torch.io.invariants',
+                 'zkstream_tpu_torch.analysis',
+                 'zkstream_tpu_torch.analysis.core',
+                 'zkstream_tpu_torch.analysis.spans',
+                 'zkstream_tpu_torch.analysis.ackorder',
+                 'zkstream_tpu_torch.analysis.drift',
+                 'zkstream_tpu_torch.analysis.faultorder',
+                 'zkstream_tpu_torch.analysis.locks',
+                 'zkstream_tpu_torch.analysis.loopblock',
+                 'zkstream_tpu_torch.analysis.linearize',
+                 'zkstream_tpu_torch.cli',
+                 'zkstream_tpu_torch.__main__'):
         assert name in mods
 
 
@@ -138,12 +154,65 @@ def test_imports_load_no_jax(script):
     assert res.stdout.strip().endswith('ok')
 
 
+@pytest.mark.parametrize('script', ['packages', 'member'])
+def test_server_side_loads_no_torch(script):
+    """The package, its client, server, CLI and analysis modules load no
+    torch (the ingest defers it), and neither does a running ensemble
+    member: a member process, spawned again after every SIGKILL, pays
+    for no torch import it never uses.  ``FleetIngest`` and ``ops/``
+    still import it."""
+    if script == 'packages':
+        body = ('import zkstream_tpu_torch\n'
+                'import zkstream_tpu_torch.client\n'
+                'import zkstream_tpu_torch.server\n'
+                'import zkstream_tpu_torch.cli\n'
+                'import zkstream_tpu_torch.analysis\n'
+                'import zkstream_tpu_torch.io.faults\n'
+                'import zkstream_tpu_torch.io.ingest\n'
+                "assert 'torch' not in sys.modules\n"
+                'from zkstream_tpu_torch.io.ingest import FleetIngest\n'
+                "FleetIngest(device='cpu')\n"
+                "assert 'torch' in sys.modules\n")
+    else:
+        # the member worker's main() in a thread until it serves
+        # clients: READY means it recovered, elected itself and serves
+        body = ('import io, socket, tempfile, threading, time\n'
+                'from zkstream_tpu_torch.server import member_worker\n'
+                'from zkstream_tpu_torch.server.election import '
+                'allocate_ports\n'
+                'cport, eport = allocate_ports(2)\n'
+                "sys.argv = ['member_worker.py', '0', tempfile.mkdtemp(), "
+                'str(cport), str(eport)]\n'
+                'out, sys.stdout = sys.stdout, io.StringIO()\n'
+                'threading.Thread(target=member_worker.main, '
+                'daemon=True).start()\n'
+                'deadline = time.monotonic() + 60\n'
+                "while 'READY' not in sys.stdout.getvalue():\n"
+                '    assert time.monotonic() < deadline\n'
+                '    time.sleep(0.05)\n'
+                'sys.stdout = out\n'
+                "socket.create_connection(('127.0.0.1', cport)).close()\n"
+                "assert 'torch' not in sys.modules\n")
+    code = ('import sys\n' + body
+            + "print('ok', flush=True)\nimport os\nos._exit(0)\n")
+    env = {k: v for k, v in os.environ.items() if k != 'PYTHONPATH'}
+    env['PYTHONPATH'] = _ROOT
+    res = subprocess.run([sys.executable, '-c', code], cwd=_ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip().endswith('ok')
+
+
 @pytest.mark.parametrize('what', ['entry', 'ingest', 'ingest_device',
                                   'batch', 'mesh', 'mesh_ingest',
-                                  'multihost_ingest', 'dryrun'])
+                                  'multihost_ingest', 'dryrun',
+                                  'schedule', 'cli'])
 def test_default_device_raises_without_card(what):
     if torch.cuda.is_available():
         pytest.skip('a card is present: the default device is valid')
+    import asyncio
+
+    from zkstream_tpu_torch import cli
     from zkstream_tpu_torch.entry import dryrun_multichip, entry
     from zkstream_tpu_torch.io.ingest import FleetIngest
     from zkstream_tpu_torch.ops.pipeline import batch_to_device
@@ -158,9 +227,21 @@ def test_default_device_raises_without_card(what):
                 np.zeros((2, 8), np.uint8), np.zeros((2,), np.int32)),
             'mesh': make_mesh, 'mesh_ingest': MeshFleetIngest,
             'multihost_ingest': MultihostFleetIngest,
-            'dryrun': lambda: dryrun_multichip(2)}
+            'dryrun': lambda: dryrun_multichip(2),
+            'schedule': lambda: asyncio.run(_batch_schedule()),
+            'cli': lambda: cli.main(['--codec', 'ingest', 'ping'])}
     with pytest.raises(RuntimeError, match='CUDA'):
         call[what]()
+
+
+async def _batch_schedule():
+    """The first seeded ensemble schedule whose plan drives a batch-
+    regime ``FleetIngest``, on the default device."""
+    from zkstream_tpu_torch.io.faults import FaultPlan, run_ensemble_schedule
+
+    seed = next(s for s in range(200)
+                if FaultPlan.randomized(s).ingest_mode == 'batch')
+    return await run_ensemble_schedule(seed)
 
 
 def test_cpu_entry_runs_plain_version():

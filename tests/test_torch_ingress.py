@@ -16,7 +16,8 @@ shards), not O(connections)), the ``ZKSTREAM_RX_BUF`` knob, the
 over the sharded path and the dispatcher handoff (no-SO_REUSEPORT
 fallback) — each server-facing case on the port's server and on the
 JAX package's, and the port's reply streams equal to the reference's.
-The chaos slices wait for the fault plane (ROADMAP queue 1 item 3).
+The chaos slices run the port's fault plane, its ensemble schedules
+with their ingests on the CPU.
 
 Whether this host runs a batched rx backend is decided in a fixture,
 never at import: the C extensions may still be building while the
@@ -26,9 +27,11 @@ file is collected, and every worker must collect the same tests.
 from __future__ import annotations
 
 import asyncio
+import functools
 
 import pytest
 
+from zkstream_tpu_torch.io import faults
 from zkstream_tpu_torch.io.ingress import (
     BACKENDS,
     METRIC_RECV_DRAIN_DEPTH,
@@ -438,3 +441,61 @@ async def test_uring_recv_roundtrip():
         for a, b in pairs:
             a.close()
             b.close()
+
+
+# -- the chaos slices: the fault plane over the port's receive path -----
+
+#: The CPU tests run every plan's ``FleetIngest`` on the CPU.
+run_ensemble_schedule = functools.partial(faults.run_ensemble_schedule,
+                                          device='cpu')
+
+
+@pytest.fixture
+def port_batched():
+    """The batched rx backend the port chose on this host; the case
+    skips where there is none."""
+    p = _probes()[0]
+    if not (p.available('uring') or p.available('mmsg')):
+        pytest.skip('no batched ingress backend here (uring: %s; mmsg: '
+                    '%s)' % (p.uring_reason, p.mmsg_reason))
+
+
+async def test_chaos_slice_ingress_sharded(monkeypatch, port_batched):
+    """Transport-tier chaos with the sharded ingress force-enabled
+    (`zkstream_tpu_torch chaos --ingress-shards 4` reruns any seed):
+    byte faults — the server_rx split/delay/reset stream included —
+    against servers whose receive path is the batched drain."""
+    monkeypatch.setenv('ZKSTREAM_INGRESS_SHARDS', '4')
+    for seed in range(3300, 3306):
+        res = await faults.run_schedule(seed)
+        assert res.ok, (seed, res.violations)
+
+
+async def test_chaos_slice_ingress_validator(monkeypatch):
+    """The same seeds on the forced shards=1 validator: a failure
+    appearing in only one slice bisects to the ingress plane."""
+    monkeypatch.setenv('ZKSTREAM_INGRESS_SHARDS', '1')
+    for seed in range(3300, 3306):
+        res = await faults.run_schedule(seed)
+        assert res.ok, (seed, res.violations)
+
+
+@pytest.mark.timeout(120)
+async def test_ensemble_chaos_slice_ingress_sharded(monkeypatch,
+                                                    port_batched):
+    """Ensemble tier with sharded ingress force-enabled: member
+    kills/restarts, partitions, elections, the crash-recovery image —
+    invariants 1-7 and the no-open-spans check unchanged."""
+    monkeypatch.setenv('ZKSTREAM_INGRESS_SHARDS', '4')
+    for seed in range(3400, 3403):
+        res = await run_ensemble_schedule(seed)
+        assert res.ok, (seed, res.violations)
+
+
+@pytest.mark.timeout(120)
+async def test_ensemble_chaos_slice_ingress_validator(monkeypatch):
+    monkeypatch.setenv('ZKSTREAM_INGRESS_SHARDS', '1')
+    for seed in range(3400, 3403):
+        res = await run_ensemble_schedule(seed)
+        assert res.ok, (seed, res.violations)
+

@@ -390,3 +390,24 @@ async def test_tick_ledger_sums_to_busy_tick_on_live_server(server):
     # generous slop for a loaded CI core)
     assert phase_total >= 0.25 * tick_total, \
         (phase_total, tick_total)
+
+
+async def test_scrape_after_chaos_schedule_smoke():
+    """One seeded chaos schedule with an injected collector: the
+    post-campaign scrape must expose cleanly — no NaN gauges, and
+    every registered histogram readable with >= 0 samples."""
+    from zkstream_tpu_torch.io.faults import run_schedule
+
+    coll = Collector()
+    res = await run_schedule(17, ops=4, collector=coll)
+    assert res.ok, res.violations
+    text = coll.expose()
+    assert ' nan' not in text
+    hists = coll.histograms()
+    assert any(h.name == 'zookeeper_op_latency_ms' for h in hists)
+    for h in hists:
+        for key in list(h._series) or [()]:
+            assert h.count(dict(key)) >= 0
+    # ops ran, so per-op latency actually observed samples
+    assert coll.get_collector('zookeeper_op_latency_ms').count(
+        {'op': 'CREATE'}) >= 1

@@ -23,13 +23,14 @@ Covers the README "Overload plane" contract:
   ``THROTTLED`` code (the client's capped-exp backoff retries to
   success once pressure clears; reads keep flowing).
 
-The overload fault vocabulary and its chaos slices wait for the fault
-plane (ROADMAP queue 1 item 3).
+The overload fault vocabulary and its chaos slices run on the port's
+fault plane (its ensemble schedules' ingests on the CPU).
 """
 
 from __future__ import annotations
 
 import asyncio
+import functools
 import os
 import struct
 
@@ -37,7 +38,9 @@ import pytest
 
 from helpers import wait_until
 from zkstream_tpu_torch import Client
+from zkstream_tpu_torch.io import faults
 from zkstream_tpu_torch.io.backoff import BackoffPolicy
+from zkstream_tpu_torch.io.faults import FaultConfig, FaultInjector, FaultPlan
 from zkstream_tpu_torch.io.overload import (
     MAX_CONNS_ENV,
     NO_OVERLOAD_ENV,
@@ -515,3 +518,83 @@ async def test_throttled_write_bounces_typed_and_retries(server_cls):
         Plane.write_throttled = orig
         await c.close()
         await srv.stop()
+
+
+# -- the fault plane's overload draws and slices ------------------------
+
+
+#: The CPU tests run every plan's ``FleetIngest`` on the CPU.
+run_ensemble_schedule = functools.partial(faults.run_ensemble_schedule,
+                                          device='cpu')
+
+
+def test_overload_faults_deterministic():
+    for seed in (0, 3, 99):
+        a, b = (FaultConfig.randomized(seed) for _ in range(2))
+        assert (a.p_conn_flood, a.p_stall_reader,
+                a.p_oversize_frame) == \
+            (b.p_conn_flood, b.p_stall_reader, b.p_oversize_frame)
+        pa, pb = (FaultPlan.randomized(seed) for _ in range(2))
+        assert pa.overloads == pb.overloads
+        assert pa.forced_overload_steps() == \
+            pb.forced_overload_steps()
+        ia = FaultInjector(seed, FaultConfig(p_stall_reader=0.5))
+        ib = FaultInjector(seed, FaultConfig(p_stall_reader=0.5))
+        assert [ia.overload_action() for _ in range(8)] == \
+            [ib.overload_action() for _ in range(8)]
+
+
+def test_overload_draws_do_not_perturb_existing_streams():
+    """The overload knobs ride fresh RNG streams: consuming the
+    overload stream leaves every pre-existing category's draw
+    sequence untouched (existing seeds stay pinned)."""
+    inj = FaultInjector.randomized(4)
+    inj.overload_action()
+    fresh = FaultInjector.randomized(4)
+    for cat in ('rx', 'tx', 'connect', 'server_tx'):
+        assert [inj.rand(cat) for _ in range(8)] == \
+            [fresh.rand(cat) for _ in range(8)]
+
+
+@pytest.mark.timeout(120)
+async def test_transport_tier_overload_slice():
+    """A handful of transport-tier schedules across seeds whose fresh
+    overload stream fires the mid-schedule burst: all invariants stay
+    clean."""
+    for seed in range(8):
+        r = await faults.run_schedule(seed, ops=6)
+        assert r.ok, 'seed %d: %r' % (r.seed, r.violations)
+
+
+@pytest.mark.timeout(240)
+async def test_ensemble_tier_forced_overload_slice():
+    """Forced overload bursts (conn flood / stalled reader /
+    oversized frame) in every ensemble schedule: the full invariant
+    engine stays clean and the bursts land in the member timeline."""
+    saw_burst = False
+    for seed in (1, 5, 9):
+        r = await run_ensemble_schedule(seed, ops=10, overloads=2)
+        assert r.ok, 'seed %d: %r' % (r.seed, r.violations)
+        if any(str(e.get('event', '')).startswith('overload-')
+               for e in r.member_events):
+            saw_burst = True
+    assert saw_burst
+
+
+@pytest.mark.slow
+@pytest.mark.timeout(3000)
+async def test_overload_campaign_slow():
+    """The acceptance campaign: 120 seeded schedules with forced
+    overload bursts, clean on every invariant.  Scale knobs mirror
+    tests/test_torch_chaos.py."""
+    base = int(os.environ.get('ZKSTREAM_CHAOS_SEED', '0'))
+    n = int(os.environ.get('ZKSTREAM_OVERLOAD_SCHEDULES', '120'))
+    bad = []
+    for i in range(n):
+        r = await run_ensemble_schedule(base + i, ops=10,
+                                        overloads=2)
+        if not r.ok:
+            bad.append(r)
+    assert not bad, 'failing seeds: %s' % (
+        ', '.join('%d: %r' % (r.seed, r.violations) for r in bad))
+

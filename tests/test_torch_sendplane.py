@@ -7,13 +7,14 @@ disabled), the wire-equivalence invariant (the coalesced stream is
 byte-identical to the uncoalesced concatenation for every opcode), the
 end-to-end client/server path with cork on and off (on the port's
 server and on the JAX package's), and the flush-batch histograms.  The
-chaos slice waits for the fault plane (ROADMAP queue 1 item 3)."""
+chaos slice runs the port's fault plane."""
 
 from __future__ import annotations
 
 import asyncio
 
 from zkstream_tpu_torch import Client
+from zkstream_tpu_torch.io.faults import run_schedule
 from zkstream_tpu_torch.io.sendplane import (
     METRIC_FLUSH_BYTES,
     METRIC_FLUSH_FRAMES,
@@ -247,3 +248,13 @@ async def test_flush_cap_honored_per_backend():
     finally:
         transport.close()
         right.close()
+
+
+async def test_chaos_slice_cork_disabled(monkeypatch):
+    """A short seeded slice with coalescing force-disabled: schedule
+    outcomes stay invariant-clean either way (the tier-1 campaigns run
+    the same seeds with the default cork enabled)."""
+    monkeypatch.setenv('ZKSTREAM_NO_CORK', '1')
+    for seed in range(140, 146):
+        res = await run_schedule(seed)
+        assert res.ok, (seed, res.violations)

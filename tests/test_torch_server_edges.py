@@ -9,8 +9,8 @@ drives the port's ``ServerConnection`` directly).
 Reference behaviors: lib/zk-buffer.js:337-347 (GET_CHILDREN without
 Stat), lib/zk-session.js:170-173 (sid==0 on unknown session),
 lib/zk-session.js:421-471 + the server-side catch-up rules of
-SET_WATCHES at relZxid.  The ensemble case waits for the replication
-plane (ROADMAP queue 1 item 3)."""
+SET_WATCHES at relZxid.  The ensemble case runs on both packages'
+``ZKEnsemble``."""
 
 from __future__ import annotations
 
@@ -21,7 +21,7 @@ import pytest
 from zkstream_tpu_torch.protocol.framing import PacketCodec
 from zkstream_tpu_torch.server import ZKServer
 from zkstream_tpu_torch.server.server import ServerConnection
-from test_torch_basic import server, server_cls  # noqa: F401
+from test_torch_basic import ensemble_cls, server, server_cls  # noqa: F401
 
 
 class RawClient:
@@ -204,3 +204,12 @@ async def test_set_watches_catchup_decision_table(server, raw):
     assert {(p['type'], p['path']) for p in fired} == {
         ('DATA_CHANGED', '/old')}
 
+
+async def test_ensemble_set_lag_rejects_leader(event_loop, ensemble_cls):
+    ens = await ensemble_cls(2).start()
+    try:
+        with pytest.raises(ValueError, match='leader'):
+            ens.set_lag(0, None)
+        ens.set_lag(1, None)             # follower: fine
+    finally:
+        await ens.stop()

@@ -2,8 +2,8 @@
 tests/test_trace.py): span lifecycle, xid/zxid correlation through the
 connection, the bounded ring, and the zxid-merged timeline of one
 member.  Server-facing cases run on the port's server and on the JAX
-package's.  The cross-member merges and the chaos dumps need the
-ensemble and the fault plane (ROADMAP queue 1 item 3)."""
+package's, and so do the cross-member merges on both packages'
+``ZKEnsemble``; the chaos dumps are the port's fault plane's."""
 
 import asyncio
 import json
@@ -19,7 +19,7 @@ from zkstream_tpu_torch.utils.trace import (
     format_timeline,
     merge_timelines,
 )
-from test_torch_basic import server, server_cls  # noqa: F401
+from test_torch_basic import ensemble_cls, server, server_cls  # noqa: F401
 
 
 def test_ring_is_bounded_and_ordered():
@@ -264,3 +264,158 @@ async def test_single_member_timeline_span_by_span(server_cls, tmp_path):
            and e['op'] == 'FANOUT'][0]
     assert fan['batch'] == 1 and fan['nbytes'] > 0
     assert 'GROUP_FSYNC' in format_timeline(merged)
+
+
+async def test_chaos_schedule_result_carries_trace():
+    """Every chaos schedule result ships its span dump — the substrate
+    for the on-failure print in tests/test_chaos.py and the chaos CLI
+    (which adds --trace-out for offline triage) — plus, since the
+    server grew its trace plane, the member ring(s), with every span
+    settled."""
+    from zkstream_tpu_torch.io.faults import run_schedule
+
+    res = await run_schedule(5, ops=3)
+    assert res.trace, 'span ring dump missing from schedule result'
+    assert any(s['op'] == 'CREATE' for s in res.trace)
+    json.dumps(res.trace)          # JSON-ready for --trace-out
+    assert format_spans(res.trace)  # and renderable for failures
+    assert res.member_rings, 'member ring missing from result'
+    member_ops = {s['op'] for spans in res.member_rings.values()
+                  for s in spans}
+    assert 'COMMIT' in member_ops
+    assert all(s['status'] != 'open'
+               for spans in res.member_rings.values() for s in spans)
+    # merged timeline is buildable from exactly what the result holds
+    merged = merge_timelines(dict({'client': res.trace},
+                                  **res.member_rings))
+    assert merged and format_timeline(merged)
+
+
+async def _ensemble_write_rings(ensemble_cls, lag_member=None):
+    """Drive one watched write through an in-process 3-member
+    ensemble (WAL on) and return (set_zxid, rings, ensemble spans)."""
+    import shutil
+    import tempfile
+
+    wal_dir = tempfile.mkdtemp(prefix='zktrace-wal-')
+    ens = await ensemble_cls(3, wal_dir=wal_dir).start()
+    client = Client(servers=[{'address': h, 'port': p}
+                             for h, p in ens.addresses()],
+                    shuffle_backends=False, session_timeout=8000)
+    client.start()
+    try:
+        await client.wait_connected(timeout=10)
+        await client.create('/w', b'v0')
+        fires = []
+        fired = asyncio.get_running_loop().create_future()
+
+        def on_change(*a):
+            fires.append(a)
+            if len(fires) >= 2 and not fired.done():
+                fired.set_result(None)
+        client.watcher('/w').on('dataChanged', on_change)
+        await asyncio.sleep(0.15)          # armed; arm-emit delivered
+        if lag_member is not None:
+            ens.set_lag(lag_member, None)  # park the follower
+        stat = await client.set('/w', b'v1')
+        set_zxid = stat.mzxid
+        await asyncio.wait_for(fired, 10)
+        extra_zxid = None
+        if lag_member is not None:
+            # a later write lands while the laggard is parked, THEN
+            # the laggard catches up — its apply span for set_zxid is
+            # recorded after extra_zxid's spans
+            stat2 = await client.set('/w', b'v2')
+            extra_zxid = stat2.mzxid
+            ens.set_lag(lag_member, 0.0)
+            ens.servers[lag_member].store.catch_up()
+        await client.sync('/w')
+        await asyncio.sleep(0.05)
+        rings = {'client': client.trace.dump()}
+        for s in ens.servers:
+            rings['member:%s' % (s.member,)] = s.trace.dump()
+        return set_zxid, extra_zxid, rings
+    finally:
+        await client.close()
+        await ens.stop()
+        shutil.rmtree(wal_dir, ignore_errors=True)
+
+
+async def test_merged_timeline_span_by_span(ensemble_cls):
+    """The acceptance chain, asserted span by span for one watched
+    write: client submit -> leader commit -> WAL append -> the shared
+    group-fsync span (batch-stamped) -> both follower applies ->
+    fan-out delivery."""
+    set_zxid, _extra, rings = await _ensemble_write_rings(ensemble_cls)
+    merged = merge_timelines(rings)
+    chain = [(e['source'], e['op']) for e in merged
+             if e['zxid'] == set_zxid
+             and e['op'] in ('SET_DATA', 'COMMIT', 'WAL_APPEND',
+                             'GROUP_FSYNC', 'APPLY', 'FANOUT')]
+    assert chain[0] == ('client', 'SET_DATA'), chain
+    assert chain[1] == ('member:0', 'COMMIT'), chain
+    assert chain[2] == ('member:0', 'WAL_APPEND'), chain
+    assert chain[3] == ('member:0', 'GROUP_FSYNC'), chain
+    assert chain[4:6] == [('member:1', 'APPLY'),
+                          ('member:2', 'APPLY')], chain
+    assert chain[6] == ('member:0', 'FANOUT'), chain
+    fsync = [e for e in merged if e['zxid'] == set_zxid
+             and e['op'] == 'GROUP_FSYNC'][0]
+    assert fsync['batch'] >= 1             # barrier batch size
+    fan = [e for e in merged if e['zxid'] == set_zxid
+           and e['op'] == 'FANOUT'][0]
+    assert fan['batch'] == 1 and fan['nbytes'] > 0
+    # renders, and the zxid column groups
+    text = format_timeline(merged)
+    assert 'GROUP_FSYNC' in text and 'FANOUT' in text
+
+
+async def test_lagging_follower_apply_merges_in_zxid_order(
+        ensemble_cls):
+    """A follower apply recorded long after later transactions still
+    merges back into its own write's zxid group — the timeline is
+    causal, not wall-clock."""
+    set_zxid, extra_zxid, rings = await _ensemble_write_rings(
+        ensemble_cls, lag_member=2)
+    laggard = [s for s in rings['member:2']
+               if s['op'] == 'APPLY' and s['zxid'] == set_zxid]
+    assert laggard, 'laggard never applied the watched write'
+    leader_commit = [s for s in rings['member:0']
+                     if s['op'] == 'COMMIT'
+                     and s['zxid'] == extra_zxid]
+    assert leader_commit
+    # wall-clock: the late apply happened AFTER the later commit...
+    assert laggard[0]['t_wall'] > leader_commit[0]['t_wall']
+    merged = merge_timelines(rings)
+    idx_apply = merged.index([e for e in merged
+                              if e['op'] == 'APPLY'
+                              and e['source'] == 'member:2'
+                              and e['zxid'] == set_zxid][0])
+    first_extra = min(i for i, e in enumerate(merged)
+                      if e['zxid'] == extra_zxid)
+    # ...but the merge puts it back before anything of the later zxid
+    assert idx_apply < first_extra
+
+
+def test_chaos_trace_out_round_trips_with_member_rings(tmp_path):
+    """Satellite regression: `chaos --trace-out` JSON is
+    schema-stamped, carries the member rings and merged timeline, and
+    round-trips through json.loads."""
+    from zkstream_tpu_torch.cli import main
+
+    out = tmp_path / 'trace.json'
+    rc = main(['chaos', '--seed', '5', '--schedules', '2', '--quiet',
+               '--trace-out', str(out)])
+    assert rc == 0
+    dumps = json.loads(out.read_text())
+    assert len(dumps) == 2
+    for d in dumps:
+        assert d['trace_schema'] == TRACE_SCHEMA
+        assert d['member_rings'], d.get('seed')
+        assert any(s['op'] == 'COMMIT'
+                   for spans in d['member_rings'].values()
+                   for s in spans)
+        assert isinstance(d['timeline'], list)
+        # every timeline entry is zxid-keyed and source-stamped
+        assert all('zxid' in e and 'source' in e
+                   for e in d['timeline'])

@@ -25,10 +25,12 @@ the same tests."""
 from __future__ import annotations
 
 import asyncio
+import functools
 import socket
 
 import pytest
 
+from zkstream_tpu_torch.io import faults
 from zkstream_tpu_torch.io.sendplane import SendPlane
 from zkstream_tpu_torch.io.transport import (
     BACKENDS,
@@ -567,3 +569,43 @@ def test_crc32c_matches_reference_and_software():
         want = ref_ext.crc32c(data, seed)
         assert port_ext.crc32c(data, seed) == want
         assert software_crc32c(data, seed) == ref_soft(data, seed) == want
+
+
+# -- the chaos slices: the fault plane over each tier -------------------
+
+#: The CPU tests run every plan's ``FleetIngest`` on the CPU.
+run_ensemble_schedule = functools.partial(faults.run_ensemble_schedule,
+                                          device='cpu')
+
+
+async def test_chaos_slice_transport_batched(monkeypatch, backend):
+    """Transport-tier chaos with each batched backend force-enabled:
+    byte faults, resets and delays against planes that defer to the
+    submission queue — invariants and the no-open-spans check hold
+    (`zkstream_tpu_torch chaos --transport <be>` reruns any seed)."""
+    monkeypatch.setenv('ZKSTREAM_TRANSPORT', backend)
+    for seed in range(3100, 3106):
+        res = await faults.run_schedule(seed)
+        assert res.ok, (seed, res.violations)
+
+
+async def test_chaos_slice_transport_asyncio_validator(monkeypatch):
+    """The same seeds on the forced asyncio validator: a failure that
+    appears in only one slice bisects to the tier."""
+    monkeypatch.setenv('ZKSTREAM_TRANSPORT', 'asyncio')
+    for seed in range(3100, 3106):
+        res = await faults.run_schedule(seed)
+        assert res.ok, (seed, res.violations)
+
+
+@pytest.mark.timeout(120)
+async def test_ensemble_chaos_slice_transport_batched(monkeypatch,
+                                                      backend):
+    """Ensemble tier with each batched backend force-enabled: member
+    kills/restarts, partitions, migration, the crash-recovery image —
+    invariants 1-7 and the no-open-spans check unchanged."""
+    monkeypatch.setenv('ZKSTREAM_TRANSPORT', backend)
+    for seed in range(3200, 3203):
+        res = await run_ensemble_schedule(seed)
+        assert res.ok, (seed, res.violations)
+

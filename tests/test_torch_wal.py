@@ -1,14 +1,14 @@
-"""The port's durability plane (server/persist.py; the single-member
-cases of tests/test_wal.py): CRC32C record framing, the two-tier entry
+"""The port's durability plane (server/persist.py; the port of
+tests/test_wal.py): CRC32C record framing, the two-tier entry
 codec, group-commit sync policies, fuzzy snapshots + rotation, and
 crash recovery — including the torn-write corpus: a recorded log
 truncated at EVERY byte offset of its final record must still recover
 the longest valid prefix, and a bit flip anywhere must be rejected by
 CRC, never half-applied.  The server cases run on the port's server
 and on the JAX package's; the fsync fault cases take a fixed stub of
-the WAL's fault hook.  The ensemble restart, follower resync and
-recovery-invariant cases wait for the replication plane and the
-invariants (ROADMAP queue 1 item 3)."""
+the WAL's fault hook.  The full-ensemble restart runs on both
+packages' ``ZKEnsemble``; the follower resyncs drive the port's
+replication layer."""
 
 from __future__ import annotations
 
@@ -34,7 +34,7 @@ from zkstream_tpu_torch.server.persist import (
 )
 from zkstream_tpu_torch.server.store import ZKDatabase
 from zkstream_tpu_torch.utils.metrics import Collector
-from test_torch_basic import server_cls  # noqa: F401
+from test_torch_basic import ensemble_cls, server_cls  # noqa: F401
 
 
 # -- CRC32C -------------------------------------------------------------
@@ -633,3 +633,155 @@ async def test_log_readable_by_the_other_package(tmp_path, writer):
     assert sorted(got.nodes) == sorted(want.nodes)
     for path, node in want.nodes.items():
         assert bytes(got.nodes[path].data) == bytes(node.data), path
+
+
+async def test_full_ensemble_restart_from_disk(tmp_path, ensemble_cls):
+    """The headline guarantee, in-process tier: kill EVERY member (a
+    full-ensemble crash — the case a live-leader resync can never
+    recover), bring a fresh ensemble up over the same WAL dir, and
+    every acked write is back, replicas included."""
+    from zkstream_tpu_torch import Client
+
+    d = str(tmp_path / 'wal')
+    ens = await ensemble_cls(3, wal_dir=d, durability='tick').start()
+    c = Client(servers=ens.addresses(), shuffle_backends=False,
+               session_timeout=8000)
+    c.start()
+    await c.wait_connected(timeout=10)
+    for i in range(10):
+        await c.create('/k%d' % i, b'v%d' % i)
+    await c.close()
+    await ens.stop()                    # every member dies; WAL closed
+
+    ens2 = await ensemble_cls(3, wal_dir=d, durability='tick').start()
+    assert ens2.db.zxid >= 10
+    c2 = Client(servers=[ens2.addresses()[1]],   # a follower serves it
+                session_timeout=8000)
+    c2.start()
+    await c2.wait_connected(timeout=10)
+    await c2.sync('/k0')
+    for i in range(10):
+        data, _ = await c2.get('/k%d' % i)
+        assert bytes(data) == b'v%d' % i
+    await c2.close()
+    await ens2.stop()
+
+
+async def test_follower_resync_from_recovered_zxid(tmp_path):
+    """A follower that recovered its tree from disk rejoins with its
+    recovered zxid and is shipped ONLY the tail — no snapshot fetch —
+    and converges with the leader."""
+    from zkstream_tpu_torch.server.replication import (
+        RemoteLeader,
+        RemoteReplicaStore,
+        ReplicationService,
+    )
+
+    d = str(tmp_path / 'wal')
+    db = ZKDatabase()
+    svc = await ReplicationService(db).start()
+    try:
+        # follower joins fresh, mirrors 5 txns into its own WAL
+        r1 = await RemoteLeader('127.0.0.1', svc.port).connect()
+        rep1 = RemoteReplicaStore(r1, lag=0.0)
+        wal = WriteAheadLog(d, sync='always')
+        wal.bind(rep1)
+        r1.wal = wal
+        for i in range(5):
+            db.create('/a%d' % i, b'x%d' % i, None, 0, None)
+        await asyncio.sleep(0.05)
+        assert rep1.zxid == 5
+        r1.close()                       # SIGKILL stand-in
+        wal.close()
+        await asyncio.sleep(0.05)
+
+        # a second replica keeps the leader's log retained while the
+        # leader commits 4 more
+        rk = await RemoteLeader('127.0.0.1', svc.port).connect()
+        RemoteReplicaStore(rk, lag=0.0)
+        for i in range(5, 9):
+            db.create('/a%d' % i, b'x%d' % i, None, 0, None)
+
+        # restart-from-disk: recovered zxid becomes the catch-up base
+        rec = recover_state(d)
+        assert rec.zxid == 5
+        r2 = await RemoteLeader('127.0.0.1', svc.port,
+                                have_zxid=rec.zxid).connect()
+        rep2 = RemoteReplicaStore(r2, lag=0.0,
+                                  recovered={'zxid': rec.zxid,
+                                             'nodes': rec.nodes})
+        assert r2.resynced, 'leader fell back to a snapshot fetch'
+        assert r2._snapshot is None
+        await asyncio.sleep(0.05)
+        assert rep2.zxid == 9
+        assert rep2.nodes['/a8'].data == b'x8'
+        assert rep2.nodes['/a0'].data == b'x0'  # from the recovery
+        r2.close()
+        rk.close()
+    finally:
+        await svc.stop()
+
+
+async def test_follower_resync_falls_back_when_log_truncated(
+        tmp_path):
+    """When the leader's retained log no longer covers the recovered
+    zxid, the join falls back to the snapshot bootstrap — correctness
+    over cleverness."""
+    from zkstream_tpu_torch.server.replication import (
+        RemoteLeader,
+        RemoteReplicaStore,
+        ReplicationService,
+    )
+
+    db = ZKDatabase()
+    for i in range(6):
+        db.create('/pre%d' % i, b'p%d' % i, None, 0, None)
+    # no replica was attached: nothing retained, log starts at 6
+    svc = await ReplicationService(db).start()
+    try:
+        r = await RemoteLeader('127.0.0.1', svc.port,
+                               have_zxid=3).connect()
+        rep = RemoteReplicaStore(r, lag=0.0,
+                                 recovered={'zxid': 3, 'nodes': {}})
+        assert not r.resynced            # zxid 3 is not covered
+        await asyncio.sleep(0.05)
+        assert rep.zxid == 6             # snapshot image installed
+        assert rep.nodes['/pre5'].data == b'p5'
+        r.close()
+    finally:
+        await svc.stop()
+
+
+async def test_durable_recovery_invariant_floor():
+    """check_durable_recovery: strict without a floor; acks past the
+    floor are demoted to outcome-unknown."""
+    from zkstream_tpu_torch.io.invariants import (
+        History,
+        check_durable_recovery,
+    )
+    from zkstream_tpu_torch.server.store import NodeTree
+
+    h = History()
+    h.acked_create('/a', b'x', 1, zxid=3)
+    h.acked_create('/b', b'y', 1, zxid=8)
+
+    tree = NodeTree()
+    tree.zxid = 3
+    tree._apply_create('/a', b'x', OPEN_ACL_UNSAFE, 0, 3, 0)
+    tree.zxid = 3
+    # strict: /b missing is a loss
+    out = check_durable_recovery(h, tree)
+    assert any('/b' in v for v in out), out
+    # floor 3 (fsync failed past it): /b demoted, clean
+    assert check_durable_recovery(h, tree, floor_zxid=3) == []
+    # recovered-zxid floor check
+    tree2 = NodeTree()
+    out = check_durable_recovery(History(), tree2)
+    assert out == []
+    h2 = History()
+    h2.acked_set('/w', 1, 1, zxid=9)
+    tree3 = NodeTree()
+    tree3._apply_create('/w', b'v1', OPEN_ACL_UNSAFE, 0, 2, 0)
+    out = check_durable_recovery(h2, tree3)
+    assert any('behind the newest durable acked zxid' in v
+               for v in out), out

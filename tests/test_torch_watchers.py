@@ -1,8 +1,8 @@
 """Watcher-engine integration tests of the port's ``Client``: the port
 of tests/test_watchers.py (the reference's watcher sequences in
 test/basic.test.js:644-981), each on the port's server and on the JAX
-package's.  The lagging-follower case needs ``ZKEnsemble``, which
-waits for the replication plane (ROADMAP queue 1 item 3)."""
+package's; the lagging-follower case on both packages'
+``ZKEnsemble``."""
 
 import asyncio
 
@@ -10,7 +10,7 @@ import pytest
 
 from helpers import wait_until
 from zkstream_tpu_torch import Client
-from test_torch_basic import server, server_cls  # noqa: F401
+from test_torch_basic import ensemble_cls, server, server_cls  # noqa: F401
 
 
 @pytest.fixture
@@ -148,3 +148,60 @@ async def test_watcher_zxid_dedup_suppresses_duplicate_emits(two_clients):
     await asyncio.sleep(0.2)
     assert seen == [b'v']
 
+
+async def test_stale_rearm_on_lagging_follower_does_not_reemit(ensemble_cls):
+    """A churn-forced re-arm can land on a lagging follower whose tree
+    is BEHIND what this watcher already delivered; the stale read's
+    older mzxid must not re-emit (watch at-most-once per change —
+    io/invariants.py check_watch_once).  Deterministic: the follower
+    is parked (lag=None) before the change, the serving member is
+    killed after the fire, and the session resumes on the stale
+    follower."""
+    from zkstream_tpu_torch.io.backoff import BackoffPolicy
+
+    ens = await ensemble_cls(2, lag=0.0).start()
+    c = Client(servers=ens.addresses(), shuffle_backends=False,
+               session_timeout=8000, op_timeout=2000,
+               connect_policy=BackoffPolicy(timeout=400, retries=3,
+                                            delay=30, cap=200))
+    c.start()
+    try:
+        await c.wait_connected(timeout=10)
+        assert c.current_connection().backend.port == \
+            ens.servers[0].port
+        await c.create('/w', b'v0')
+        fires = []
+        c.watcher('/w').on(
+            'dataChanged',
+            lambda data, stat: fires.append((bytes(data),
+                                             stat.mzxid)))
+        await wait_until(lambda: len(fires) == 1)   # the arming emit
+        ens.set_lag(1, None)           # park the follower HERE
+        await c.set('/w', b'v1', version=-1)
+        await wait_until(lambda: len(fires) == 2)   # the change fires
+        created_zxid, changed_zxid = fires[0][1], fires[1][1]
+        assert changed_zxid > created_zxid
+
+        dying = c.current_connection()
+        await ens.kill(0)
+        await wait_until(
+            lambda: not dying.is_in_state('connected'), timeout=10)
+        # session resumes on the parked follower; its re-arm read
+        # serves the PRE-change tree (mzxid == created_zxid) — the
+        # stale state must not re-emit
+        await c.wait_connected(timeout=10, fail_fast=False)
+        await asyncio.sleep(0.5)       # window for a wrong emit
+        assert fires[2:] == [], fires
+        # un-park: the follower applies the change it lagged on; the
+        # re-armed watch must not double-fire it either (the watcher
+        # already delivered changed_zxid)
+        ens.set_lag(1, 0.0)
+        await asyncio.sleep(0.5)
+        assert [z for _d, z in fires].count(changed_zxid) == 1, fires
+        # a genuinely new change still fires exactly once
+        await c.set('/w', b'v2', version=-1)
+        await wait_until(lambda: any(d == b'v2' for d, _z in fires))
+        assert len(fires) == 3, fires
+    finally:
+        await c.close()
+        await ens.stop()

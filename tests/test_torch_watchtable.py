@@ -9,24 +9,27 @@ in order, on both paths, including one-shot consumption and the
 SET_WATCHES catch-up decision table, on the port's server and on the
 JAX package's, and the port's streams equal to the reference's — plus
 the fan-out observability (per-shard flush-batch histograms,
-``zk_fanout_tick_ms``).  The lagging-follower locality case and the
-chaos slices wait for the ensemble and the fault plane (ROADMAP queue
-1 item 3); the 100k-watcher campaign for the bench (item 4).
+``zk_fanout_tick_ms``).  The lagging-follower locality case runs on
+both packages' ``ZKEnsemble``, the chaos slices on the port's fault
+plane; the 100k-watcher campaign waits for the bench (ROADMAP queue 1
+item 4): it drives ``bench.py``'s fan-out cell.
 """
 
 from __future__ import annotations
 
 import asyncio
+import functools
 
 import pytest
 
+from zkstream_tpu_torch.io import faults
 from zkstream_tpu_torch.io.sendplane import METRIC_FLUSH_FRAMES
 from zkstream_tpu_torch.server import ZKServer
 from zkstream_tpu_torch.server.watchtable import METRIC_FANOUT_TICK, WatchTable
 from zkstream_tpu_torch.utils.metrics import Collector
 
 from test_torch_server_edges import RawClient
-from test_torch_basic import server_cls  # noqa: F401
+from test_torch_basic import ensemble_cls, server_cls  # noqa: F401
 
 
 # -- table bookkeeping in isolation ------------------------------------
@@ -313,3 +316,73 @@ async def test_fanout_histograms_and_maintained_count(server_cls):
         for c in clients:
             c.close()
         await srv.stop()
+
+
+# -- the ensemble and the fault plane on both dispatch paths ------------
+
+
+#: The CPU tests run every plan's ``FleetIngest`` on the CPU.
+run_ensemble_schedule = functools.partial(faults.run_ensemble_schedule,
+                                          device='cpu')
+
+
+async def test_watch_locality_on_lagging_follower_parity(ensemble_cls):
+    """A watch armed through a deterministically lagging follower
+    fires when THAT member applies the transaction — on both dispatch
+    paths, with the same stream."""
+    out = {}
+    for mode in (True, False):
+        ens = await ensemble_cls(2, lag=None, watchtable=mode).start()
+        leader, follower = ens.servers
+        lc, fc = RawClient(), RawClient()
+        try:
+            await lc.connect(leader)
+            await fc.connect(follower)
+            lc.send({'opcode': 'CREATE', 'path': '/lag', 'data': b'',
+                     'acl': [], 'flags': 0})
+            await lc.recv(1)
+            # follower (lag=None) has not applied yet; a write
+            # through it catches it up first
+            fc.send({'opcode': 'SYNC', 'path': '/'})
+            await fc.recv(1)
+            fc.send({'opcode': 'GET_DATA', 'path': '/lag',
+                     'watch': True})
+            await fc.recv(1)
+            lc.send({'opcode': 'SET_DATA', 'path': '/lag',
+                     'data': b'x', 'version': -1})
+            await lc.recv(1)
+            # the held-back follower has NOT fired yet
+            await asyncio.sleep(0.05)
+            fc.send({'opcode': 'SYNC', 'path': '/'})
+            pkts = await fc.recv(2)      # catch-up fires the watch
+            out[mode] = [(p.get('opcode'), p.get('type'),
+                          p.get('path')) for p in pkts
+                         if p.get('opcode') == 'NOTIFICATION']
+            assert out[mode], 'lagging-follower watch never fired'
+        finally:
+            lc.close()
+            fc.close()
+            await ens.stop()
+    assert out[True] == out[False]
+
+
+async def test_chaos_slice_watchtable_disabled(monkeypatch):
+    """Transport tier with the table force-disabled: invariant 5
+    (watch at-most-once per arm) and friends hold on the emitter
+    fallback (the tier-1 campaign runs the same seeds table-on)."""
+    monkeypatch.setenv('ZKSTREAM_NO_WATCHTABLE', '1')
+    for seed in range(2400, 2406):
+        res = await faults.run_schedule(seed)
+        assert res.ok, (seed, res.violations)
+
+
+@pytest.mark.timeout(120)
+async def test_ensemble_chaos_slice_watchtable_disabled(monkeypatch):
+    """Ensemble tier, emitter fallback: member kills/restarts, lag and
+    migration with the full invariant engine — watch at-most-once per
+    arm included — on the non-table path."""
+    monkeypatch.setenv('ZKSTREAM_NO_WATCHTABLE', '1')
+    for seed in range(2500, 2503):
+        res = await run_ensemble_schedule(seed)
+        assert res.ok, (seed, res.violations)
+

@@ -42,6 +42,11 @@ hooks, routing and packet assembly) is the reference's.  What differs:
   per-bucket XLA compile.  A warm failure raises on the next tick; it
   never latches the bucket onto the scalar drain.
 
+torch is imported where a tick or a bucket needs it, never at module
+import: the client and server stacks import this module, and a process
+that never builds a ``FleetIngest`` (an ensemble member, the CLI
+without ``--codec ingest``) loads no torch.
+
 A connection needs three things: ``codec`` (a port ``PacketCodec``),
 ``is_in_state('connected')`` and ``emit('ingestDeliver', pkts, err)``.
 """
@@ -55,7 +60,6 @@ import time
 import types
 
 import numpy as np
-import torch
 
 from ..protocol.consts import (
     MAX_PACKET,
@@ -110,6 +114,8 @@ class _Bucket:
 
     def __init__(self, Bp: int, L: int, F: int, device: torch.device,
                  n_ints: int, n_bytes: int = 0):
+        import torch
+
         cuda = device.type == 'cuda'
         self.stage_buf = torch.empty((Bp, L), dtype=torch.uint8,
                                      pin_memory=cuda)
@@ -535,6 +541,8 @@ class FleetIngest:
     def _pack_bodies(self, st, bd, lb):
         """Pack a device-body tick's ``WireStats``, ``ReplyBodies`` and
         ``ListBodies`` into ``(ints, bytes)`` in the schema's layout."""
+        import torch
+
         from ..ops.replies import StatPlanes
 
         F = self.max_frames
@@ -560,6 +568,8 @@ class FleetIngest:
         return self._pack_ints(st, extra), byts
 
     def _pack_ints(self, st, extra):
+        import torch
+
         head = torch.stack([st.n_frames, st.resid,
                             st.bad.to(torch.int32)], dim=1)      # [Bp, 3]
         planes = [getattr(st, f) for f in self._HDR_PLANES] + list(extra)
@@ -800,6 +810,8 @@ class FleetIngest:
         """Stage the active streams, run the tick (:meth:`_step`) and
         read back the packed ``(ints, bytes-or-None)`` as numpy: two
         pinned readbacks and one synchronize on a CUDA device."""
+        import torch
+
         B = len(active)
         self._fill_staging(bk, active)
         cuda = self.device.type == 'cuda'

@@ -1,7 +1,7 @@
 """In-process ZooKeeper server: data model, wire server, write-ahead
-log and watch table (the port's own copy of ``zkstream_tpu.server``,
-one member; the replication and election planes come with the
-ensemble)."""
+log, watch table, ensemble simulation, and cross-process member
+replication and election (the port's own copy of
+``zkstream_tpu.server``)."""
 
 from .persist import (  # noqa: F401
     WriteAheadLog,
@@ -9,6 +9,11 @@ from .persist import (  # noqa: F401
     open_wal_database,
     recover_state,
     scan_dir,
+)
+from .replication import (  # noqa: F401
+    RemoteLeader,
+    RemoteReplicaStore,
+    ReplicationService,
 )
 from .server import ServerConnection, ZKEnsemble, ZKServer  # noqa: F401
 from .watchtable import WatchTable, watchtable_default  # noqa: F401

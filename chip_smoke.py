@@ -183,6 +183,29 @@ Phases (any failure exits non-zero; nothing is caught):
    ``run_concurrent_schedule(clients=3)`` over the first 4 of them,
    ``device='cuda'``: every schedule ``ok``, K1 launches equal to the
    ingests' device ticks.
+14. The port's bench (``zkstream_tpu_torch.bench``) in-process on
+   ``cuda:0``.  Its flagship at its own corpus (``bench._fleet()``:
+   16384 streams x 64 frames, seed 42, the reference bench's shape):
+   the scalar tick and full-decode baselines and the C-extension full
+   decode, then ``bench_tensor`` — the tick (K1), the toy-width full
+   decode (K2 + ``parse_reply_bodies``) and the deployed-width one (K2 +
+   both body parses), each timed as the min of 4 rounds — and its three
+   gates (every plane against the corpus's ground truth and the scalar
+   codec's packets, the list planes against the scalar walks).  K1's
+   launches, counted from 0 just before ``bench_tensor``, must equal
+   the tick candidate's calls (warm-up included), K2's the two
+   full-decode candidates' calls.  The bench's three metric lines are
+   printed.  Then its client-ops cells at ``CLIENT_SCALES`` (32 and 128
+   port ``Client``s against a port ``ZKServer``; Python codecs, C codecs
+   and ``FleetIngest(device='cuda', body_mode='host', max_frames=8,
+   bypass_bytes=0)``), one run each: K1's launches, from 0 before each
+   ingest run, must equal its device ticks (at least one), K2 none.
+   Last, the port's C load generator, built from ``csrc/loadgen.c``:
+   one 1,000-session count-mode ``zkloadgen`` run at its default thread
+   count (two or more) against a port ``ZKServer``, bracketed by a port
+   ``Client``'s writes.  It must exit 0 inside ``LG_TIMEOUT``, connect
+   every session, and its op counts must reconcile with the server's
+   zxid advance, its fan-out SET fire the Python client's watch.
 
 The last lines are the card's name and power limit, one JSON object of
 kernels, and ``{"ok": true, "device": {...}}``.  Without a CUDA device
@@ -1586,6 +1609,272 @@ def _ensemble_phase(W, K2, smi: str, device: str = 'cuda',
     return {'runs': runs, 'campaigns': camp}
 
 
+# -- phase 14: the port's bench and the C load generator ---------------
+
+#: Sessions of phase 14's load-generator run, and its time limit (s).
+LG_SESSIONS = 1000
+LG_COUNT = 4
+LG_TIMEOUT = 120.0
+
+
+def _bench_flagship(W, K2, bench, smi: str, device: str) -> dict:
+    """Phase 14a: the bench's flagship in-process at its own corpus
+    (``bench._fleet()``, B x 64 frames, seed 42): the scalar and C
+    baselines, ``bench_tensor`` (K1 and K2 launches counted from 0 just
+    before it) and its three gates.  Prints the bench's three metric
+    lines."""
+    import torch
+
+    t0 = time.perf_counter()
+    buf, lens, streams, slots = bench._fleet()
+    t_fleet = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    scalar = bench.bench_scalar(streams)
+    scalar_full, pkts = bench.bench_scalar_full(streams, slots)
+    ext_full = bench.bench_ext_full(streams, slots)
+    if ext_full is None:
+        raise RuntimeError('phase 14: the C-extension codec did not build')
+    t_base = time.perf_counter() - t0
+    dev = torch.device(device)
+    if device == 'cuda':
+        torch.cuda.synchronize()
+    calls: dict = {}
+    W.launches = K2.launches = 0
+    t0 = time.perf_counter()
+    tick, full, deployed = bench.bench_tensor(buf, lens, streams, pkts,
+                                              slots, device=dev,
+                                              calls=calls)
+    t_tensor = time.perf_counter() - t0
+    k1, k2 = W.launches, K2.launches
+    want = ((calls['tick'], calls['full'] + calls['full-deployed'])
+            if device == 'cuda' else (0, 0))
+    if (k1, k2) != want:
+        raise AssertionError('phase 14: bench_tensor launched K1 %d and K2 '
+                             '%d times; its candidates made %r calls'
+                             % (k1, k2, calls))
+    lines = bench.metric_lines(tick, full, deployed, scalar, scalar_full,
+                               dict(bench._card(dev), backend=dev.type))
+    for line in lines:
+        print(json.dumps(line), flush=True)
+    parts = (_flagship_parts(W, K2, bench, buf, lens) if device == 'cuda'
+             else {})
+    _log('# phase 14 bench flagship on %s: corpus %d x %d (%.1f MiB) built '
+         'in %.2f s; baselines %.2f s: scalar tick %.2f MiB/s, scalar full '
+         'decode %.2f MiB/s, C-extension full decode %.2f MiB/s; '
+         'bench_tensor %.2f s: tick (K1) %.2f MiB/s = %.3fx scalar, toy '
+         'full decode (K2) %.2f MiB/s = %.3fx, deployed full decode (K2 + '
+         'body parse) %.2f MiB/s = %.3fx (%.3fx the C extension); calls %s; '
+         'launches K1 %d, K2 %d; every gate passed'
+         % (smi, buf.shape[0], buf.shape[1], buf.nbytes / 2**20, t_fleet,
+            t_base, scalar, scalar_full, ext_full, t_tensor, tick,
+            tick / scalar, full, full / scalar_full, deployed,
+            deployed / scalar_full, deployed / ext_full, calls, k1, k2))
+    if parts:
+        _log('# phase 14 where a flagship call goes on %s (ms, wrapper '
+             'calls back to back, after the counted run): %s'
+             % (smi, ', '.join('%s %.4f' % kv for kv in parts.items())))
+    return {'k1': k1, 'k2': k2, 'calls': calls, 'lines': lines,
+            'parts_ms': parts,
+            'scalar': scalar, 'scalar_full': scalar_full,
+            'ext_full': ext_full}
+
+
+def _flagship_parts(W, K2, bench, buf, lens) -> dict:
+    """The mean ms of each part of the bench's three candidates at its
+    corpus, each part timed alone (CUDA events around 20 wrapper calls
+    back to back): K1, the tick's torch reductions, K2 and its unpack at
+    both widths, and the two body parses."""
+    import torch
+
+    from zkstream_tpu_torch.ops import pipeline as P
+    from zkstream_tpu_torch.ops import replies as R
+
+    db, dl = P.batch_to_device(buf, lens, 'cuda')
+    F = bench.FRAMES
+    r = W.wire_scan(db, dl, F)
+    st16, gd16 = P.wire_full_decode(db, dl, F, 16)
+    st, gd = P.wire_full_decode(db, dl, F, bench.DEP_DATA)
+    parts = {
+        'K1 wire_scan': lambda: W.wire_scan(db, dl, F),
+        'tick reductions (_stats_from_scan)':
+            lambda: P._stats_from_scan(r),
+        'K2 full_scan max_data=16': lambda: K2.full_scan(db, dl, F, 16),
+        'wire_full_decode max_data=16 (K2 + unpack)':
+            lambda: P.wire_full_decode(db, dl, F, 16),
+        'parse_reply_bodies toy':
+            lambda: R.parse_reply_bodies(db, st16.starts, st16.sizes,
+                                         max_data=16, max_path=8,
+                                         getdata=gd16),
+        'K2 full_scan max_data=256':
+            lambda: K2.full_scan(db, dl, F, bench.DEP_DATA),
+        'wire_full_decode max_data=256 (K2 + unpack)':
+            lambda: P.wire_full_decode(db, dl, F, bench.DEP_DATA),
+        'parse_reply_bodies deployed':
+            lambda: R.parse_reply_bodies(db, st.starts, st.sizes,
+                                         max_data=bench.DEP_DATA,
+                                         max_path=bench.DEP_PATH,
+                                         getdata=gd),
+        'parse_list_bodies deployed':
+            lambda: R.parse_list_bodies(
+                db, st.starts, st.sizes, max_children=bench.DEP_CHILDREN,
+                max_name=bench.DEP_NAME, max_acls=bench.DEP_ACLS,
+                max_scheme=bench.DEP_SCHEME, max_id=bench.DEP_ID),
+    }
+    out = {}
+    for name, fn in parts.items():
+        fn()
+        out[name] = _time_ms(torch, fn, 20)
+    return out
+
+
+def _bench_client_ops(W, K2, bench, smi: str, device: str) -> dict:
+    """Phase 14b: the bench's client-ops cells at ``CLIENT_SCALES``, one
+    run per scale and codec mode, the ingest arm on ``device``; K1's
+    launches (from 0 before each ingest run) must equal the arm's device
+    ticks, K2 must not launch."""
+    import torch
+
+    cells = {}
+    k1 = 0
+    for n in bench.CLIENT_SCALES:
+        for mode in ('python', 'native', 'ingest'):
+            if device == 'cuda':
+                torch.cuda.synchronize()
+            W.launches = K2.launches = 0
+            r = asyncio.run(bench._client_ops_run(mode, n, device=device))
+            if mode == 'ingest':
+                want = r['ingest_ticks'] if device == 'cuda' else 0
+                if (W.launches, K2.launches) != (want, 0):
+                    raise AssertionError(
+                        'phase 14 client ops at %d: K1 %d and K2 %d '
+                        'launches for %d device ticks'
+                        % (n, W.launches, K2.launches, r['ingest_ticks']))
+                if r['ingest_ticks'] == 0:
+                    raise AssertionError('phase 14 client ops at %d: the '
+                                         'ingest arm took no device tick'
+                                         % (n,))
+                k1 += W.launches
+            cells[(n, mode)] = r
+        _log('# phase 14 client ops at %d clients on %s: get / set / create '
+             'ops/s %s; ingest arm: %d device ticks (warming %d, scalar %d) '
+             '= K1 launches' % (
+                 n, smi, ', '.join('%s %s / %s / %s' % (
+                     m, cells[(n, m)]['get']['ops_per_sec'],
+                     cells[(n, m)]['set']['ops_per_sec'],
+                     cells[(n, m)]['create']['ops_per_sec'])
+                     for m in ('python', 'native', 'ingest')),
+                 cells[(n, 'ingest')]['ingest_ticks'],
+                 cells[(n, 'ingest')]['ingest_warming_ticks'],
+                 cells[(n, 'ingest')]['ingest_scalar_ticks']))
+    return {'k1': k1, 'cells': cells}
+
+
+async def _loadgen_parity(lg, sessions: int, count: int) -> dict:
+    """A count-mode ``zkloadgen`` run of ``sessions`` sessions at its
+    default thread count against the port's ``ZKServer``, bracketed by a
+    port ``Client``'s writes, as the load generator's parity test does:
+    its op counts must reconcile with the server's zxid advance, and its
+    fan-out SET must fire the watch the Python client armed."""
+    from zkstream_tpu_torch import Client
+    from zkstream_tpu_torch.server import ZKServer
+
+    srv = await ZKServer().start()
+    c = Client(servers=[('127.0.0.1', srv.port)], shuffle_backends=False,
+               session_timeout=30000)
+    c.start()
+    proc = None
+    try:
+        await c.wait_connected(timeout=10)
+        await c.create('/parity', b'seed')
+        fired = asyncio.Event()
+        c.watcher('/parity').on('dataChanged', lambda *a: fired.set())
+        await asyncio.sleep(0.05)     # let the watch arm land
+        before = (await c.set('/parity', b'a')).mzxid
+        cmd = lg.argv([('127.0.0.1', srv.port)], sessions, count=count,
+                      mix='get=50,set=50', path='/parity',
+                      ensure_path=False, arm_watch=True, fanout_sets=2,
+                      pipeline=4, close_sessions=True)
+        t0 = time.perf_counter()
+        proc = await asyncio.create_subprocess_exec(
+            *cmd, stdout=asyncio.subprocess.PIPE,
+            stderr=asyncio.subprocess.PIPE)
+        out, err = await asyncio.wait_for(proc.communicate(), LG_TIMEOUT)
+        wall = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise AssertionError('phase 14: zkloadgen exited %d: %r %r'
+                                 % (proc.returncode, out[-2000:],
+                                    err[-2000:]))
+        s = json.loads(out.decode().strip().splitlines()[-1])
+        after = (await c.set('/parity', b'b')).mzxid
+        ops = s['ops']
+        writes = ops['SET_DATA']['count'] - ops['SET_DATA']['errors']
+        checks = {
+            'threads >= 2': s['threads'] >= 2,
+            'every session connected': s['connected'] == sessions,
+            'mix ops = sessions x count + fan-out rounds':
+                ops['GET_DATA']['count'] + ops['SET_DATA']['count']
+                == sessions * count + s['fanout']['rounds'],
+            'no errors': s['errors'] == {'connect': 0, 'io': 0, 'proto': 0},
+            'no zxid-floor violation': s['zxid']['floor_violations'] == 0,
+            'zxid advance = acked writes + 1': after - before == writes + 1,
+            'acked-write max zxid inside the bracket':
+                before < s['zxid']['acked_write_max_zxid'] < after,
+            'fan-out delivered = expected':
+                s['fanout']['rounds'] == 2
+                and s['fanout']['delivered'] == s['fanout']['expected'],
+        }
+        await asyncio.wait_for(fired.wait(), 5)
+        failed = [k for k, ok in checks.items() if not ok]
+        if failed:
+            raise AssertionError('phase 14 zkloadgen: %s; summary %s'
+                                 % (failed, json.dumps(s)))
+        return {'summary': s, 'wall_s': wall, 'zxid_advance': after - before,
+                'writes': writes}
+    finally:
+        if proc is not None and proc.returncode is None:
+            proc.kill()
+            await proc.wait()
+        try:
+            await asyncio.wait_for(c.close(), 5)
+        except Exception:
+            c.pool.stop()
+        await srv.stop()
+
+
+def _bench_phase(W, K2, smi: str, device: str = 'cuda') -> dict:
+    """Phase 14: the port's bench (its flagship and client-ops cells) and
+    one 1,000-session run of the port's C load generator."""
+    from zkstream_tpu_torch import bench
+    from zkstream_tpu_torch.utils import loadgen as lg
+    from zkstream_tpu_torch.utils import native as N
+
+    t_phase = time.perf_counter()
+    flag = _bench_flagship(W, K2, bench, smi, device)
+    t0 = time.perf_counter()
+    ops = _bench_client_ops(W, K2, bench, smi, device)
+    t_ops = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    binary = N.build_loadgen()
+    if binary is None:
+        raise RuntimeError('phase 14: csrc/loadgen.c did not build')
+    t_build = time.perf_counter() - t0
+    lgr = asyncio.run(_loadgen_parity(lg, LG_SESSIONS, LG_COUNT))
+    s = lgr['summary']
+    _log('# phase 14 zkloadgen %s (built in %.2f s): %d sessions on %d '
+         'threads against the port\'s ZKServer, exit 0 in %.2f s; handshake '
+         'wall %s s; %d gets + %d sets (%d fan-out rounds, %d/%d delivered) '
+         '= %d x %d + 2; zxid advance %d = %d acked writes + 1; client ops '
+         'cells %.2f s; phase wall %.2f s'
+         % (binary, t_build, s['connected'], s['threads'], lgr['wall_s'],
+            s['handshake'].get('wall_s'),
+            s['ops']['GET_DATA']['count'], s['ops']['SET_DATA']['count'],
+            s['fanout']['rounds'], s['fanout']['delivered'],
+            s['fanout']['expected'], LG_SESSIONS, LG_COUNT,
+            lgr['zxid_advance'], lgr['writes'], t_ops,
+            time.perf_counter() - t_phase))
+    return {'flagship': flag, 'client_ops': ops, 'loadgen': lgr}
+
+
 def main() -> int:
     import torch
 
@@ -2240,6 +2529,9 @@ def main() -> int:
     finally:
         gc.unfreeze()
 
+    # -- 14. the port's bench and the C load generator --
+    bench14 = _bench_phase(W, K2, smi)
+
     # -- report --
     kernels = [{
         'name': 'K1 wire_scan (frame scan + reply-header parse)',
@@ -2271,7 +2563,11 @@ def main() -> int:
             'phase 13 run_ensemble_schedule campaign':
                 ens['campaigns']['run_ensemble_schedule']['k1'],
             'phase 13 run_concurrent_schedule(clients=3) campaign':
-                ens['campaigns']['run_concurrent_schedule(clients=3)']['k1']},
+                ens['campaigns']['run_concurrent_schedule(clients=3)']['k1'],
+            'phase 14 bench_tensor tick candidate':
+                bench14['flagship']['k1'],
+            'phase 14 client-ops cells, FleetIngest host bodies':
+                bench14['client_ops']['k1']},
     }, {
         'name': 'K2 full_scan (K1 + GET_DATA body words)',
         'route': 'cuda',
@@ -2297,7 +2593,9 @@ def main() -> int:
             'phase 12 live Clients, FleetIngest device bodies':
                 live['device']['k2'],
             'phase 13 ensemble leader SIGKILL, FleetIngest device bodies':
-                ens['runs']['device']['k2']},
+                ens['runs']['device']['k2'],
+            'phase 14 bench_tensor full-decode candidates':
+                bench14['flagship']['k2']},
     }, {
         'name': 'seq_walk (the sequence-parallel scan\'s chunk walk)',
         'route': 'cuda',

@@ -79,14 +79,33 @@ def test_every_module_is_found():
                  'zkstream_tpu_torch.analysis.loopblock',
                  'zkstream_tpu_torch.analysis.linearize',
                  'zkstream_tpu_torch.cli',
-                 'zkstream_tpu_torch.__main__'):
+                 'zkstream_tpu_torch.__main__',
+                 'zkstream_tpu_torch.bench',
+                 'zkstream_tpu_torch.utils.loadgen',
+                 'zkstream_tpu_torch.tools',
+                 'zkstream_tpu_torch.tools.read_worker'):
         assert name in mods
 
 
 @pytest.mark.parametrize('script', ['modules', 'chip_smoke', 'native',
-                                    'parallel', 'client'])
+                                    'parallel', 'client', 'bench'])
 def test_imports_load_no_jax(script):
-    if script == 'modules':
+    if script == 'bench':
+        # the bench's flagship stages on the CPU at a tiny B, the load
+        # generator's build and argv, and the read worker's codec
+        body = ('from zkstream_tpu_torch import bench\n'
+                'from zkstream_tpu_torch.utils import loadgen\n'
+                'from zkstream_tpu_torch.tools import read_worker\n'
+                'bench.B = 2\n'
+                'buf, lens, streams, slots = bench._fleet()\n'
+                'mibs, pkts = bench.bench_scalar_full(streams, slots)\n'
+                "bench.bench_tensor(buf, lens, streams, pkts, slots, "
+                "device='cpu')\n"
+                "loadgen.argv([('127.0.0.1', 1)], 1)\n"
+                'read_worker._setup_path()\n'
+                'from zkstream_tpu_torch.protocol.framing import '
+                'PacketCodec\n')
+    elif script == 'modules':
         body = 'import importlib\n' + ''.join(
             'importlib.import_module(%r)\n' % m for m in _modules())
     elif script == 'parallel':
@@ -154,14 +173,24 @@ def test_imports_load_no_jax(script):
     assert res.stdout.strip().endswith('ok')
 
 
-@pytest.mark.parametrize('script', ['packages', 'member'])
+@pytest.mark.parametrize('script', ['packages', 'member', 'bench_wal'])
 def test_server_side_loads_no_torch(script):
     """The package, its client, server, CLI and analysis modules load no
     torch (the ingest defers it), and neither does a running ensemble
     member: a member process, spawned again after every SIGKILL, pays
     for no torch import it never uses.  ``FleetIngest`` and ``ops/``
-    still import it."""
-    if script == 'packages':
+    still import it.  The bench's host-only families (``--wal`` here,
+    through ``main()`` at a small size) load none either."""
+    if script == 'bench_wal':
+        body = ('import os\n'
+                "os.environ['ZKSTREAM_BENCH_WAL_ROUNDS'] = '1'\n"
+                'from zkstream_tpu_torch import bench\n'
+                'bench.OPS_TOTAL = 32\n'
+                'bench.WAL_SCALES = (4,)\n'
+                "sys.argv = ['bench', '--wal']\n"
+                'bench.main()\n'
+                "assert 'torch' not in sys.modules\n")
+    elif script == 'packages':
         body = ('import zkstream_tpu_torch\n'
                 'import zkstream_tpu_torch.client\n'
                 'import zkstream_tpu_torch.server\n'

@@ -11,8 +11,8 @@ JAX package's, and the port's streams equal to the reference's — plus
 the fan-out observability (per-shard flush-batch histograms,
 ``zk_fanout_tick_ms``).  The lagging-follower locality case runs on
 both packages' ``ZKEnsemble``, the chaos slices on the port's fault
-plane; the 100k-watcher campaign waits for the bench (ROADMAP queue 1
-item 4): it drives ``bench.py``'s fan-out cell.
+plane, and the slow 100k-watcher campaign on the port's bench
+(``zkstream_tpu_torch.bench.fanout_cell``).
 """
 
 from __future__ import annotations
@@ -386,3 +386,23 @@ async def test_ensemble_chaos_slice_watchtable_disabled(monkeypatch):
         res = await run_ensemble_schedule(seed)
         assert res.ok, (seed, res.violations)
 
+
+
+# -- the 100k campaign (slow: scale proof, kept out of tier-1) ----------
+
+@pytest.mark.slow
+@pytest.mark.timeout(600)
+async def test_100k_watcher_fanout_campaign():
+    """100k sessions on one box, every one watching the hot path: the
+    fan-out completes, delivers exactly once per subscriber, and the
+    maintained count stays exact — the serving-plane scale target,
+    through the port's bench fan-out cell."""
+    from zkstream_tpu_torch import bench
+
+    col = Collector()
+    r = await bench.fanout_cell(100000, 100000, table=True,
+                                events=3, collector=col)
+    assert r['events'] == 3
+    fr = col.get_collector(METRIC_FLUSH_FRAMES)
+    # every subscriber of every event got exactly one frame
+    assert fr.sum({'plane': 'fanout'}) == 300000.0

@@ -1,9 +1,10 @@
 """Loader for the port's host codec tier: the C-ABI frame scanner
 (``csrc/zkwire.cpp``) and the CPython-extension codec
-(``csrc/zkwire_ext.c``).
+(``csrc/zkwire_ext.c``), and the builder of the C load generator
+(``csrc/loadgen.c``).
 
 This is the port's own copy of ``zkstream_tpu.utils.native`` for those
-two artifacts.  Both build on first use with the ambient ``g++`` /
+three artifacts.  All three build on first use with the ambient ``g++`` /
 ``gcc`` into ``build/`` at the repository root (the directory the CUDA
 kernels build into, listed in ``.gitignore``).  Design constraints, in
 order:
@@ -350,6 +351,40 @@ def ensure_ext():
     if build_ext() is None:
         return None
     return get_ext()
+
+
+# -- C load generator (csrc/loadgen.c) ---------------------------------
+#
+# A standalone binary, not a shared library: it drives the real wire
+# protocol over raw sockets (the measuring instrument the bench
+# families spawn instead of the Python read workers — README "Load
+# generation").  Same discipline as the other two artifacts:
+# version-named output in build/, atomic tmp+rename publish, graceful
+# None when the host has no compiler.  It is a host tool: None means
+# no load generator, never a device fallback.
+
+_LOADGEN_VERSION = 1
+
+
+def loadgen_source_path() -> str:
+    return os.path.join(_pkg(), 'csrc', 'loadgen.c')
+
+
+def loadgen_path() -> str:
+    return os.path.join(build_dir(), 'zkloadgen.v%d' % _LOADGEN_VERSION)
+
+
+def build_loadgen() -> str | None:
+    """Compile the load generator if missing or stale; return its
+    path or None.  Synchronous (tools/bench only, never the event
+    loop)."""
+    src, out = loadgen_source_path(), loadgen_path()
+    if not os.path.exists(src):
+        return None
+    if not _stale(src, out):
+        return out
+    return _compile(['gcc', '-O2', '-pthread', src, '-o',
+                     out + '.tmp.%d' % os.getpid()], out, 'loadgen')
 
 
 class NativeFrameScanner:

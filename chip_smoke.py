@@ -206,6 +206,23 @@ Phases (any failure exits non-zero; nothing is caught):
    ``Client``'s writes.  It must exit 0 inside ``LG_TIMEOUT``, connect
    every session, and its op counts must reconcile with the server's
    zxid advance, its fan-out SET fire the Python client's watch.
+15. The port's measuring tools (``zkstream_tpu_torch/tools/``) on
+   ``cuda:0``, with the script's heap frozen out of the collector's
+   reach.  ``sweep_crossover.run_cell`` at 32, 256 and 1,024
+   connections (``max_frames`` 16, and 4 at 1,024) for ``native``,
+   ``ingest`` (K1), ``ingest-auto`` (``FleetIngest``'s shipped dispatch
+   defaults) and ``ingest-py-dev`` (K2), one round of the get workload
+   each: no cell may raise, every get is counted, every fan-out storm
+   fires all ``n`` watchers, and each ingest cell's K1 launches equal
+   its host-body device ticks and its K2 launches its device-body ones
+   (the other kernel 0); the ``ingest-auto`` cells print their routing
+   fractions.  Then ``diag_ingest`` at 32 clients x 15 creates (its
+   per-phase split printed; K1 launches = its device ticks),
+   ``crossover_encode`` at 128 and 1,024 connections (the device bytes
+   held to the host encoder's before any timing), ``bench_linearize
+   --rounds 1`` (exit 0) and a short ``profile_hotpath`` decode run.
+   K1 and K2 launches, from 0 at the phase's start, must equal the sum
+   of its ingests' device ticks of each body mode.
 
 The last lines are the card's name and power limit, one JSON object of
 kernels, and ``{"ok": true, "device": {...}}``.  Without a CUDA device
@@ -1875,6 +1892,107 @@ def _bench_phase(W, K2, smi: str, device: str = 'cuda') -> dict:
     return {'flagship': flag, 'client_ops': ops, 'loadgen': lgr}
 
 
+# -- phase 15: the port's measuring tools -----------------------------
+
+#: Phase 15's sweep cells: fleet sizes and modes (one round, get).
+TOOLS_CONNS = (32, 256, 1024)
+TOOLS_MODES = ('native', 'ingest', 'ingest-auto', 'ingest-py-dev')
+
+
+def _tools_phase(W, K2, smi: str, device: str = 'cuda') -> dict:
+    """Phase 15: the tools of ``zkstream_tpu_torch/tools/`` driven on
+    ``device``; returns the K1 and K2 launches of its ingests."""
+    from zkstream_tpu_torch.tools import (bench_linearize, crossover_encode,
+                                         diag_ingest, profile_hotpath)
+    from zkstream_tpu_torch.tools import sweep_crossover as SC
+
+    t_phase = time.perf_counter()
+    W.launches = K2.launches = 0
+    want = {'k1': 0, 'k2': 0}
+    for n in TOOLS_CONNS:
+        SC.MAX_FRAMES = 4 if n >= 1024 else 16
+        for mode in TOOLS_MODES:
+            t0 = time.perf_counter()
+            r = asyncio.run(SC.run_cell(mode, n, 'get', device))
+            g, fo = r['get'], r['fanout']
+            if g['count'] != g['expected']:
+                raise AssertionError('phase 15 %s at %d: %d of %d gets '
+                                     'counted' % (mode, n, g['count'],
+                                                  g['expected']))
+            if fo['fired'] != [n] * SC.STORMS:
+                raise AssertionError('phase 15 %s at %d: storms fired %s, '
+                                     'not %d each' % (mode, n, fo['fired'],
+                                                      n))
+            line = ('# phase 15 sweep %s at %d on %s: %.1f get ops/s (p50 '
+                    '%.3f, p99 %.3f ms), fan-out best %.2f ms; %.2f s'
+                    % (mode, n, smi, g['ops_per_sec'], g['p50_ms'],
+                       g['p99_ms'], fo['best_ms'],
+                       time.perf_counter() - t0))
+            ing = r.get('ingest')
+            if ing is not None:
+                k2_mode = mode == 'ingest-py-dev'
+                got = (ing['k1_launches'], ing['k2_launches'])
+                if got != ((0, ing['ticks']) if k2_mode
+                           else (ing['ticks'], 0)):
+                    raise AssertionError(
+                        'phase 15 %s at %d: K1 %d and K2 %d launches for %d '
+                        'device ticks' % ((mode, n) + got + (ing['ticks'],)))
+                want['k2' if k2_mode else 'k1'] += ing['ticks']
+                total = max(1, ing['ticks'] + ing['scalar_ticks']
+                            + ing['warming_ticks'])
+                line += ('; ticks %d device, %d scalar (%d frag), %d warming '
+                         '(device %.3f, scalar %.3f, frag %.3f of ticks), '
+                         '%.1f frames and %.1f bytes a tick, tick p50/p99 '
+                         '%s ms; K1 %d, K2 %d'
+                         % (ing['ticks'], ing['scalar_ticks'],
+                            ing['frag_ticks'], ing['warming_ticks'],
+                            ing['ticks'] / total,
+                            ing['scalar_ticks'] / total,
+                            ing['frag_ticks'] / total,
+                            ing['frames_per_tick'], ing['bytes_per_tick'],
+                            '%s/%s' % (ing['tick_ms']['p50'],
+                                       ing['tick_ms']['p99'])
+                            if 'tick_ms' in ing else '-', got[0], got[1]))
+            _log(line)
+    SC.MAX_FRAMES = 16
+    t0 = time.perf_counter()
+    d = asyncio.run(diag_ingest.run(32, 15, device))
+    if d['creates'] != 32 * 15 or d['k1'] != d['device_ticks'] \
+            or not d['device_ticks'] or d['run_k1'] != d['run_ticks']:
+        raise AssertionError('phase 15 diag_ingest: %d creates, K1 %d for '
+                             '%d device ticks (%d for %d in the whole run)'
+                             % (d['creates'], d['k1'], d['device_ticks'],
+                                d['run_k1'], d['run_ticks']))
+    want['k1'] += d['run_ticks']
+    _log('# phase 15 diag_ingest on %s: 32 clients x 15 creates, %.1f ops/s, '
+         '%d device ticks, %.3f ms a tick (other than the timed parts '
+         '%.3f ms in all); %.2f s' % (smi, d['ops_per_sec'],
+                                      d['device_ticks'],
+                                      d['tick_ms'] / d['device_ticks'],
+                                      d['other_ms'],
+                                      time.perf_counter() - t0))
+    t0 = time.perf_counter()
+    crossover_encode.main(['--conns', '128,1024', '--device', device])
+    _log('# phase 15 crossover_encode at 128 and 1,024: device bytes equal '
+         'to the host encoder\'s; %.2f s' % (time.perf_counter() - t0))
+    t0 = time.perf_counter()
+    rc = bench_linearize.main(['--rounds', '1'])
+    if rc != 0:
+        raise AssertionError('phase 15 bench_linearize exited %d' % (rc,))
+    t1 = time.perf_counter()
+    profile_hotpath.main(['--frames', '500', '--reps', '3'])
+    _log('# phase 15 bench_linearize %.2f s, profile_hotpath %.2f s'
+         % (t1 - t0, time.perf_counter() - t1))
+    got = {'k1': W.launches, 'k2': K2.launches}
+    if got != want:
+        raise AssertionError('phase 15: launches %s, device ticks %s'
+                             % (got, want))
+    _log('# phase 15 wall %.2f s; K1 %d and K2 %d launches = the ingests\' '
+         'device ticks' % (time.perf_counter() - t_phase, got['k1'],
+                           got['k2']))
+    return got
+
+
 def main() -> int:
     import torch
 
@@ -2532,6 +2650,14 @@ def main() -> int:
     # -- 14. the port's bench and the C load generator --
     bench14 = _bench_phase(W, K2, smi)
 
+    # -- 15. the port's measuring tools --
+    gc.collect()
+    gc.freeze()
+    try:
+        tools15 = _tools_phase(W, K2, smi)
+    finally:
+        gc.unfreeze()
+
     # -- report --
     kernels = [{
         'name': 'K1 wire_scan (frame scan + reply-header parse)',
@@ -2567,7 +2693,9 @@ def main() -> int:
             'phase 14 bench_tensor tick candidate':
                 bench14['flagship']['k1'],
             'phase 14 client-ops cells, FleetIngest host bodies':
-                bench14['client_ops']['k1']},
+                bench14['client_ops']['k1'],
+            'phase 15 sweep_crossover ingest and ingest-auto cells, '
+            'diag_ingest': tools15['k1']},
     }, {
         'name': 'K2 full_scan (K1 + GET_DATA body words)',
         'route': 'cuda',
@@ -2595,7 +2723,8 @@ def main() -> int:
             'phase 13 ensemble leader SIGKILL, FleetIngest device bodies':
                 ens['runs']['device']['k2'],
             'phase 14 bench_tensor full-decode candidates':
-                bench14['flagship']['k2']},
+                bench14['flagship']['k2'],
+            'phase 15 sweep_crossover ingest-py-dev cells': tools15['k2']},
     }, {
         'name': 'seq_walk (the sequence-parallel scan\'s chunk walk)',
         'route': 'cuda',

@@ -83,7 +83,14 @@ def test_every_module_is_found():
                  'zkstream_tpu_torch.bench',
                  'zkstream_tpu_torch.utils.loadgen',
                  'zkstream_tpu_torch.tools',
-                 'zkstream_tpu_torch.tools.read_worker'):
+                 'zkstream_tpu_torch.tools.read_worker',
+                 'zkstream_tpu_torch.tools.bench_linearize',
+                 'zkstream_tpu_torch.tools.profile_hotpath',
+                 'zkstream_tpu_torch.tools.asan_check',
+                 'zkstream_tpu_torch.tools.crossover_encode',
+                 'zkstream_tpu_torch.tools.diag_ingest',
+                 'zkstream_tpu_torch.tools.sweep_crossover',
+                 'zkstream_tpu_torch.tools.cover'):
         assert name in mods
 
 
@@ -235,7 +242,8 @@ def test_server_side_loads_no_torch(script):
 @pytest.mark.parametrize('what', ['entry', 'ingest', 'ingest_device',
                                   'batch', 'mesh', 'mesh_ingest',
                                   'multihost_ingest', 'dryrun',
-                                  'schedule', 'cli'])
+                                  'schedule', 'cli', 'sweep_cell',
+                                  'encode_batch', 'diag'])
 def test_default_device_raises_without_card(what):
     if torch.cuda.is_available():
         pytest.skip('a card is present: the default device is valid')
@@ -247,6 +255,8 @@ def test_default_device_raises_without_card(what):
     from zkstream_tpu_torch.ops.pipeline import batch_to_device
     from zkstream_tpu_torch.parallel import (MeshFleetIngest,
                                              MultihostFleetIngest, make_mesh)
+    from zkstream_tpu_torch.tools import (crossover_encode, diag_ingest,
+                                         sweep_crossover)
 
     import numpy as np
 
@@ -258,7 +268,12 @@ def test_default_device_raises_without_card(what):
             'multihost_ingest': MultihostFleetIngest,
             'dryrun': lambda: dryrun_multichip(2),
             'schedule': lambda: asyncio.run(_batch_schedule()),
-            'cli': lambda: cli.main(['--codec', 'ingest', 'ping'])}
+            'cli': lambda: cli.main(['--codec', 'ingest', 'ping']),
+            'sweep_cell': lambda: asyncio.run(
+                sweep_crossover.run_cell('native', 2)),
+            'encode_batch': lambda: crossover_encode.bench_device_batch(
+                8, 1, 1),
+            'diag': lambda: asyncio.run(diag_ingest.run(2, 1))}
     with pytest.raises(RuntimeError, match='CUDA'):
         call[what]()
 

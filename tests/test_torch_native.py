@@ -159,3 +159,31 @@ def test_no_native_env_forces_python(monkeypatch):
     assert FrameDecoder()._scanner is None
     with pytest.raises(RuntimeError, match='native codec unavailable'):
         FrameDecoder(use_native=True)
+
+
+def test_concurrent_builds_in_one_process_both_publish(tmp_path, monkeypatch):
+    """A background build and a blocking one of the same artifact in one
+    process (``get_ext()``'s thread beside ``ensure_ext()``) each write
+    their own tmp file, so both publish and neither raises."""
+    import threading
+
+    monkeypatch.setattr(native, 'build_dir', lambda: str(tmp_path))
+    barrier = threading.Barrier(2)
+    results, errors = [], []
+
+    def one():
+        barrier.wait()
+        try:
+            results.append(native.build())
+        except Exception as e:     # the race surfaced as FileNotFoundError
+            errors.append(e)
+    threads = [threading.Thread(target=one) for _ in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=120)
+    assert not any(t.is_alive() for t in threads)
+    assert errors == []
+    assert results == [native.lib_path()] * 2
+    assert os.path.exists(native.lib_path())
+    assert not [f for f in os.listdir(tmp_path) if '.tmp.' in f]

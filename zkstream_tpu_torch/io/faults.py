@@ -1680,7 +1680,8 @@ async def run_ensemble_schedule(seed: int, ops: int = 12,
         from .ingest import FleetIngest
         ingest = FleetIngest(
             body_mode='host', max_frames=8, device=device,
-            bypass_bytes=0 if plan.ingest_mode == 'batch' else 16384)
+            bypass_bytes=(0 if plan.ingest_mode == 'batch'
+                          else FleetIngest.BYPASS_BYTES))
         ingest.faults = inj
 
     client = Client(
@@ -2351,7 +2352,8 @@ async def run_concurrent_schedule(seed: int, ops: int = 12,
         # drains are the plane's deployment shape
         ingest = FleetIngest(
             body_mode='host', max_frames=8, device=device,
-            bypass_bytes=0 if plan.ingest_mode == 'batch' else 16384)
+            bypass_bytes=(0 if plan.ingest_mode == 'batch'
+                          else FleetIngest.BYPASS_BYTES))
         ingest.faults = inj
 
     spans: list = [None] * clients

@@ -170,8 +170,17 @@ class FleetIngest:
       log: parent logger.
     """
 
-    #: Fragmentation-guard calibration (measured for the reference on
-    #: its host, CROSSOVER.md; not yet re-measured for this port).
+    #: Dispatch calibration, from ``tools/sweep_crossover.py`` on one
+    #: NVIDIA H100 80GB HBM3 at a 700 W power limit (PERF.md section 5,
+    #: "Crossover on the H100"): the default ``bypass_bytes``, and the
+    #: fragmentation guard's fleet floor and its enter/exit fill of
+    #: frames a tick over the fleet size.  Paired against the C drain
+    #: over 10 rounds, the batched path lost at 64 connections (8.5 KB
+    #: a tick, sign test p = 0.02) and was at parity from 128 (15.5 KB,
+    #: p = 0.34), so the 16 KiB threshold stands; no fill the sweep
+    #: produced (0.6-1.0 of the fleet at 1,024 connections) lost, so
+    #: the guard keeps its values.
+    BYPASS_BYTES = 16384
     FRAG_MIN_FLEET = 600
     FRAG_ENTER = 0.25
     FRAG_EXIT = 0.40
@@ -187,7 +196,7 @@ class FleetIngest:
                  max_acls: int = 4, max_scheme: int = 16,
                  max_id: int = 64,
                  min_len: int = 256, device='cuda',
-                 bypass_bytes: int = 16384,
+                 bypass_bytes: int = BYPASS_BYTES,
                  warm: str = 'background',
                  frag_guard: bool | None = None,
                  log: Logger | None = None):

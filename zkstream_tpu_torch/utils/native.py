@@ -63,6 +63,13 @@ def _stale(src: str, out: str) -> bool:
                 and os.path.getmtime(out) >= os.path.getmtime(src))
 
 
+def _tmp(out: str) -> str:
+    """A build's private output path beside ``out``: one per process and
+    thread, so a background build and a blocking one in the same
+    process never publish each other's file."""
+    return '%s.tmp.%d.%d' % (out, os.getpid(), threading.get_ident())
+
+
 def _compile(cmd: list[str], out: str, what: str) -> str | None:
     """Run ``cmd`` (which writes ``cmd[-1]``, a tmp path) and publish its
     output at ``out``; None (logged) when the compiler is missing or
@@ -101,7 +108,7 @@ def build() -> str | None:
     if not _stale(src, out):
         return out
     return _compile(['g++', '-O2', '-shared', '-fPIC', '-std=c++17', src,
-                     '-o', out + '.tmp.%d' % os.getpid()], out,
+                     '-o', _tmp(out)], out,
                     'native scanner')
 
 
@@ -221,7 +228,7 @@ def build_ext() -> str | None:
         return out
     return _compile(['gcc', '-O2', '-shared', '-fPIC',
                      '-I', sysconfig.get_paths()['include'], src,
-                     '-o', out + '.tmp.%d' % os.getpid()], out,
+                     '-o', _tmp(out)], out,
                     'native ext')
 
 
@@ -384,7 +391,7 @@ def build_loadgen() -> str | None:
     if not _stale(src, out):
         return out
     return _compile(['gcc', '-O2', '-pthread', src, '-o',
-                     out + '.tmp.%d' % os.getpid()], out, 'loadgen')
+                     _tmp(out)], out, 'loadgen')
 
 
 class NativeFrameScanner:

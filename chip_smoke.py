@@ -8,7 +8,7 @@ Run from the repository root on a machine with an H100:
 Phases (any failure exits non-zero; nothing is caught):
 
 1. Build kernels K1 and K2 and the sequence-parallel scan's chunk walk
-   (one library from
+   (its exit map, hop chain and mark kernels; one library from
    ``zkstream_tpu_torch/csrc/wire_scan.cu``) with nvcc for sm_90a into
    ``build/`` and print ptxas's register/spill/shared-memory report of
    each, each kernel's launch geometry at the bench shape, and the K2
@@ -95,14 +95,22 @@ Phases (any failure exits non-zero; nothing is caught):
    timed beside the single-device one.
 9. The sequence-parallel scan (parallel/seqscan.py) of one stream, the
    valid bytes of the corpus's first 1,024 rows concatenated (65,536
-   frames), at sp=1 and sp=4 on the card: the mask must equal
-   ``frame_starts_pointer_doubling`` and the plain cursor walk, the
-   chunk-walk kernel must equal its plain version on every chunk
-   (tolerance 0), and the chunk-walk launches (counted from 0 just
-   before the sp=4 scan) must be one a shard a ring step.  Also a
-   stream whose one frame spans whole shards and one with a bad
-   prefix.  The scan and one whole-stream walk (warm and with the
-   stream evicted from L2) are timed.
+   frames), at sp=1 and sp=4 on the card: the mask must equal the plain
+   scan (CPU shards), ``frame_starts_pointer_doubling`` and the plain
+   cursor walk; every chunk's tile exit map (``seq_walk_prepare``) must
+   equal ``tile_exits_plain`` and every chunk's walk (hop chain + mark)
+   ``walk_plain`` (tolerance 0); the launches (counted from 0 just
+   before each scan) must be one exit map a chunk and two walk launches
+   a shard a ring step.  The same on a stream whose one frame spans
+   whole shards and on one with a bad prefix; each sp=4 chunk's map and
+   walk again at 16-byte tiles (every frame spans tiles); and the map
+   and walk on random small chunks and entries (before, inside and past
+   the chunk, saturated).
+   Timed: the scan at sp=1 and sp=4 at 16, 32 and 64 KiB tiles (each
+   checked against the plain cursor walk), and one whole-stream exit map
+   and walk at five tile sizes, warm and with the stream evicted from
+   L2, beside their bounds: the walk's (4 bytes a frame's prefix read,
+   the mask written) and this design's floor (the stream read).
 10. ``MeshFleetIngest`` over ``make_mesh(dp=4, devices=[cuda:0] * 4)``
    serves phase 4's 1,025 connections twice: host bodies with C codecs
    (K1 launches = 4 x device ticks, no K2) and device bodies (K2
@@ -1993,6 +2001,287 @@ def _tools_phase(W, K2, smi: str, device: str = 'cuda') -> dict:
     return got
 
 
+# -- phase 9: the sequence-parallel scan and its chunk walk -------------
+
+SEQ_TILES = (1 << 12, 1 << 13, 1 << 14, 1 << 15, 1 << 16)  # the sweep
+SEQ_SCAN_TILES = (1 << 14, 1 << 15, 1 << 16)  # the scan's sweep
+SEQ_SMALL_TILE = 16            # a tile every corpus frame spans
+SEQ_RANDOM_CHUNKS = 160        # random small chunks, kernels == plain
+
+
+def _seq_padded(s: bytes, sp: int):
+    """``s`` zero-padded to a multiple of 4 x sp bytes, 8 bytes or more
+    past its end."""
+    N = -(-(len(s) + 8) // (4 * sp)) * 4 * sp
+    pad = np.zeros(N, np.uint8)
+    pad[:len(s)] = np.frombuffer(s, np.uint8)
+    return pad
+
+
+def _seq_phase(PAR, SW, dev, smi: str, stream: bytes, bad_at: int,
+               frames: int) -> dict:
+    """Phase 9: the sp scan of ``stream`` (``frames`` complete frames)
+    and its chunk-walk kernels, held against their plain versions and
+    timed.  ``bad_at`` is a frame start at which a bad-prefix stream
+    is cut."""
+    import torch
+    from zkstream_tpu_torch.ops.frame_scan import (
+        frame_starts_pointer_doubling)
+
+    t0 = time.perf_counter()
+    err = {'prepare': 0, 'walk': 0}
+
+    def prepared(ext_d, base, end, n, tile):
+        """A state whose exit map the kernel built, held to
+        ``tile_exits_plain`` on the same card tensor (tolerance 0)."""
+        st = SW.new_state(ext_d.shape[0] - 4, dev, tile)
+        SW.seq_walk_prepare(ext_d, base, end, n, st)
+        want = SW.tile_exits_plain(ext_d, base, end, n, tile)
+        e = int((st.exits.long() - want.long()).abs().max())
+        err['prepare'] = max(err['prepare'], e)
+        if e:
+            raise AssertionError('exit map at base %d, end %d, n %d, tile '
+                                 '%d: max |d| %d from tile_exits_plain'
+                                 % (base, end, n, tile, e))
+        return st
+
+    def walk_check(ext, base, end, n, entry, tile):
+        """One chunk's map and walk from ``entry`` on the card ==
+        ``walk_plain``; returns the exit and the frames found."""
+        q, m, b = SW.walk_plain(ext, base, end, n, entry)
+        ext_d = ext.to(dev)
+        st = prepared(ext_d, base, end, n, tile)
+        SW.seq_walk(ext_d, base, end, n,
+                    torch.tensor(entry, dtype=torch.int32, device=dev), st)
+        e = max(abs(int(st.exit) - q), abs(int(st.valid) - 1),
+                int(bool(st.bad) != b), int((st.mask.cpu() != m).sum()))
+        err['walk'] = max(err['walk'], e)
+        if e:
+            raise AssertionError('chunk walk at base %d, end %d, n %d, '
+                                 'entry %d, tile %d: kernel (%d, %s) vs '
+                                 'plain (%d, %s), max |d| %d' % (
+                                     base, end, n, entry, tile,
+                                     int(st.exit), bool(st.bad), q, b, e))
+        return q, int(m.sum())
+
+    def chunk_check(pad, sp: int, n: int, tile: int) -> int:
+        """Each chunk from its true entry; returns the frames found."""
+        C, entry, found = len(pad) // sp, 0, 0
+        for i in range(sp):
+            ext = torch.from_numpy(np.concatenate(
+                [pad[i * C:(i + 1) * C], pad[((i + 1) % sp) * C:][:4]]))
+            entry, k = walk_check(ext, i * C, min(i * C + C, n), n, entry,
+                                  tile)
+            found += k
+        return found
+
+    def scan_check(s: bytes, sp: int, what: str):
+        """The sp scan of ``s`` on the card == the plain scan (CPU
+        shards) == pointer doubling, with exactly one exit map a chunk
+        and two walk launches a shard a ring step; each chunk's map and
+        walk == plain."""
+        pad = _seq_padded(s, sp)
+        dpad = torch.from_numpy(pad).to(dev)
+        scan = PAR.seq_parallel_frame_scan(
+            PAR.make_mesh(dp=1, sp=sp, devices=[dev] * sp))
+        torch.cuda.synchronize()
+        SW.launches = SW.prepare_launches = 0
+        got = scan(dpad, len(s))
+        torch.cuda.synchronize()
+        counts = (SW.prepare_launches, SW.launches)
+        if counts != (sp, 2 * (1 + max(sp - 1, 1) * sp)):
+            raise AssertionError('%s sp=%d: %d exit-map and %d walk launches'
+                                 % (what, sp, *counts))
+        want = PAR.seq_parallel_frame_scan(PAR.make_mesh(
+            dp=1, sp=sp, devices=['cpu'] * sp))(torch.from_numpy(pad), len(s))
+        dbl, dbad = frame_starts_pointer_doubling(dpad, len(s))
+        for a, b in zip(want, got):
+            if not torch.equal(a, b.cpu()):
+                raise AssertionError('%s sp=%d: scan differs from the plain '
+                                     'scan' % (what, sp))
+        if not (torch.equal(dbl.cpu(), want[0])
+                and bool(dbad) == bool(want[2])):
+            raise AssertionError('%s sp=%d: scan differs from pointer '
+                                 'doubling' % (what, sp))
+        if chunk_check(pad, sp, len(s), SW.DEFAULT_TILE) != int(want[1]):
+            raise AssertionError('%s sp=%d: chunk walks miscount'
+                                 % (what, sp))
+        return scan, dpad, got, counts
+
+    n9 = len(stream)
+    pad1 = _seq_padded(stream, 1)
+    ext_np = np.concatenate([pad1, pad1[:4]])
+    tp = time.perf_counter()
+    q_full, mask_full, bad_full = SW.walk_plain(torch.from_numpy(ext_np), 0,
+                                                n9, n9, 0)
+    plain_walk_ms = (time.perf_counter() - tp) * 1e3
+    if int(mask_full.sum()) != frames or bad_full or q_full != n9:
+        raise AssertionError('plain walk: %d frames, bad %s, exit %d'
+                             % (int(mask_full.sum()), bad_full, q_full))
+    marks = {'plain walk': time.perf_counter() - t0}
+    scans = {}
+    for sp in (1, 4):
+        scan, dpad, got, counts = scan_check(stream, sp, 'corpus')
+        if int(got[1]) != frames or bool(got[2]) or not torch.equal(
+                got[0].cpu()[:n9], mask_full[:n9]):
+            raise AssertionError('sp=%d: the scan != the plain cursor walk'
+                                 % sp)
+        scan(dpad, n9)
+        scans[sp] = {'counts': counts,
+                     'ms': _time_ms(torch, lambda: scan(dpad, n9), 5)}
+        del dpad, got
+        marks['sp=%d' % sp] = time.perf_counter() - t0
+    # the scan at sp=1 and sp=4 at each tile of the sweep: wall time a
+    # call (host launches included) and device time
+    scan_tiles = {}
+    for tile in SEQ_SCAN_TILES:
+        for sp in (1, 4):
+            dpad = torch.from_numpy(_seq_padded(stream, sp)).to(dev)
+            scan = PAR.seq_parallel_frame_scan(
+                PAR.make_mesh(dp=1, sp=sp, devices=[dev] * sp), tile)
+            got = scan(dpad, n9)
+            if int(got[1]) != frames or bool(got[2]) or not torch.equal(
+                    got[0].cpu()[:n9], mask_full[:n9]):
+                raise AssertionError('sp=%d, tile %d: the scan != the plain '
+                                     'cursor walk' % (sp, tile))
+            scan_tiles[(tile, sp)] = {
+                'ms': _time_ms(torch, lambda: scan(dpad, n9), 5),
+                'device_ms': _device_ms(torch, lambda: scan(dpad, n9), 5)[0]}
+            del dpad, got
+    marks['scan tile sweep'] = time.perf_counter() - t0
+    # every chunk of the sp=4 cut again at a tile every frame spans
+    small = chunk_check(_seq_padded(stream, 4), 4, n9, SEQ_SMALL_TILE)
+    if small != frames:
+        raise AssertionError('tile %d: %d frames' % (SEQ_SMALL_TILE, small))
+    body = struct.pack('>iqi', 5, 42, 0) + bytes(range(256)) * 8
+    span = (struct.pack('>i', len(body)) + body + struct.pack('>i', 16)
+            + struct.pack('>iqi', 6, 43, 0))
+    _sc, _d, sgot, _c = scan_check(span, 4, 'spanning')
+    bad9 = stream[:bad_at] + struct.pack('>i', -7) + stream[:4096]
+    _sc, _d, bgot, _c = scan_check(bad9, 4, 'bad prefix')
+    if int(sgot[1]) != 2 or bool(sgot[2]) or int(bgot[1]) != 3 \
+            or not bool(bgot[2]):
+        raise AssertionError('spanning / bad-prefix streams: %d frames (bad '
+                             '%s), %d frames (bad %s)' % (
+                                 int(sgot[1]), bool(sgot[2]), int(bgot[1]),
+                                 bool(bgot[2])))
+    marks['tile %d, spanning, bad prefix' % SEQ_SMALL_TILE] = \
+        time.perf_counter() - t0
+    # random small chunks of the stream and of sparse junk, at small tiles,
+    # from entries inside, before (a zero first byte too) and past the
+    # chunk, and saturated
+    rng = np.random.RandomState(SEED + 9)
+    for _ in range(SEQ_RANDOM_CHUNKS):
+        C = int(rng.choice([1, 7, 40, 300, 1000]))
+        tile = int(rng.choice([8, 16, 64, 256]))
+        if rng.rand() < 0.5:
+            base = int(rng.randint(0, n9 - C))
+            ext = ext_np[base:base + C + 4].copy()
+            n = int(rng.choice([n9, base + rng.randint(0, C + 8)]))
+        else:
+            ext = np.where(rng.rand(C + 4) < 0.3, rng.randint(0, 256, C + 4),
+                           0).astype(np.uint8)
+            if rng.rand() < 0.3:
+                ext[rng.randint(C)] = rng.choice([0x80, 0xff])
+            base, n = int(rng.randint(0, 100)), int(rng.randint(0, 300))
+        if rng.rand() < 0.3:
+            ext[0] = 0
+        # (entries before the chunk start near it: from far before, a
+        # zero first byte makes the plain walk take 4 bytes a step)
+        for entry in (base + int(rng.randint(0, C)), base,
+                      max(base - int(rng.randint(1, 400)), 0),
+                      max(base - 4, 0), base + C + 1, SW.SATURATED):
+            walk_check(torch.from_numpy(ext), base, min(base + C, n), n,
+                       entry, tile)
+    marks['random chunks'] = check_s = time.perf_counter() - t0
+
+    # one whole-stream walk (sp=1's chunk) at each tile: the exit map, the
+    # walk (hop chain + mark), warm and with the stream evicted from L2
+    ext1 = torch.from_numpy(ext_np).to(dev)
+    L1 = len(pad1)
+    zero = torch.zeros((), dtype=torch.int32, device=dev)
+    tiles = {}
+    for tile in SEQ_TILES:
+        st = SW.new_state(L1, dev, tile)
+
+        def prep():
+            SW.seq_walk_prepare(ext1, 0, n9, n9, st)
+
+        def walk():
+            st.valid.zero_()
+            SW.seq_walk(ext1, 0, n9, n9, zero, st)
+
+        def both():
+            prep()
+            walk()
+        both()
+        if not torch.equal(st.mask.cpu()[:n9], mask_full[:n9]) \
+                or int(st.exit) != q_full or bool(st.bad):
+            raise AssertionError('whole-stream walk at tile %d != the plain '
+                                 'walk' % tile)
+        tiles[tile] = {
+            'prepare_ms': _time_ms(torch, prep, 5),
+            'prepare_device_ms': _device_ms(torch, prep, 5)[0],
+            'prepare_cold_ms': _cold_ms(torch, prep, 5),
+            'walk_ms': _time_ms(torch, walk, 5),
+            'walk_device_ms': _device_ms(torch, walk, 5)[0],
+            'walk_cold_ms': _cold_ms(torch, walk, 5),
+            'both_ms': _time_ms(torch, both, 5),
+            'both_cold_ms': _cold_ms(torch, both, 5)}
+        del st
+    dt = tiles[SW.DEFAULT_TILE]
+    tp = time.perf_counter()
+    SW.tile_exits_plain(ext1, 0, n9, n9, SW.DEFAULT_TILE)
+    torch.cuda.synchronize()
+    plain_map_ms = (time.perf_counter() - tp) * 1e3
+    geo = SW.launch_config(L1)
+    del ext1
+    walk_bound_ms = SW.bound_bytes(L1, frames) / HBM_BYTES_PER_S * 1e3
+    stream_bound_ms = SW.stream_bound_bytes(L1) / HBM_BYTES_PER_S * 1e3
+    prep_bound_ms = SW.prepare_bound_bytes(L1) / HBM_BYTES_PER_S * 1e3
+    _log('# phase 9 on %s: one stream of %d bytes (%d frames); sp scan == '
+         'plain scan == pointer doubling == plain cursor walk, every exit '
+         'map == tile_exits_plain and every chunk walk == walk_plain '
+         '(tolerance 0) at sp=1 (%d exit-map + %d walk launches) and sp=4 '
+         '(%d + %d = 4 chunks + 2 x (1 + 3 ring steps x 4 shards)), at tile '
+         '%d, and the sp=4 chunks\' maps and walks at tile %d; spanning '
+         'frame and bad prefix at sp=4 too; %d random small chunks; checks %.1f s (done at: %s); scan %.3f ms '
+         '(sp=1), %.3f ms (sp=4), one card' % (
+             smi, n9, frames, *scans[1]['counts'], *scans[4]['counts'],
+             SW.DEFAULT_TILE, SEQ_SMALL_TILE, SEQ_RANDOM_CHUNKS, check_s,
+             ', '.join('%s %.1f s' % kv for kv in marks.items()),
+             scans[1]['ms'], scans[4]['ms']))
+    for (tile, sp), t in scan_tiles.items():
+        _log('# phase 9 scan at sp=%d, tile %d on %s: %.4f ms a call (device '
+             '%.4f ms), one card' % (sp, tile, smi, t['ms'], t['device_ms']))
+    for tile, t in tiles.items():
+        _log('# phase 9 whole-stream walk at tile %d on %s: exit map %.4f '
+             'ms (device %.4f, out of L2 %.4f), walk %.4f ms (device %.4f, '
+             'out of L2 %.4f), both %.4f ms (out of L2 %.4f)' % (
+                 tile, smi, t['prepare_ms'], t['prepare_device_ms'],
+                 t['prepare_cold_ms'], t['walk_ms'], t['walk_device_ms'],
+                 t['walk_cold_ms'], t['both_ms'], t['both_cold_ms']))
+    _log('# phase 9 at tile %d: geometry %s; bounds at 3.35 TB/s: exit map '
+         '%.4f ms (%d bytes), walk %.4f ms (%d bytes: 4 bytes a frame\'s '
+         'prefix read and the mask written once), this design\'s floor '
+         '%.4f ms (%d bytes: the stream read and the mask written once); '
+         'walk %.4f ms warm, bound share %.4f; exit map + walk %.4f ms warm, '
+         'bound share %.4f; plain exit map (torch, on the card) %.1f ms, '
+         'plain walk on the host %.1f ms; %.2f s' % (
+             SW.DEFAULT_TILE, geo, prep_bound_ms,
+             SW.prepare_bound_bytes(L1), walk_bound_ms,
+             SW.bound_bytes(L1, frames), stream_bound_ms,
+             SW.stream_bound_bytes(L1), dt['walk_ms'],
+             walk_bound_ms / dt['walk_ms'], dt['both_ms'],
+             walk_bound_ms / dt['both_ms'], plain_map_ms, plain_walk_ms,
+             time.perf_counter() - t0))
+    return {'scans': scans, 'err': err, 'tiles': tiles, 'bytes': n9,
+            'frames': frames, 'plain_walk_ms': plain_walk_ms,
+            'plain_map_ms': plain_map_ms, 'walk_bound_ms': walk_bound_ms,
+            'stream_bound_ms': stream_bound_ms,
+            'prepare_bound_ms': prep_bound_ms, 'scan_tiles': scan_tiles}
+
+
 def main() -> int:
     import torch
 
@@ -2058,12 +2347,14 @@ def main() -> int:
     k2_resident = K2.resident_blocks(dev, geo['warps'], geo['smem_bytes'])
     _log('# launch geometry at %d x %d: K1 %s; K2 %s (dynamic shared '
          'memory per block, not in ptxas\'s report), %d blocks resident '
-         'on the card (%d an SM), so a persistent grid of %d' % (
+         'on the card (%d an SM), so a persistent grid of %d; the chunk '
+         'walk on a 16 MiB chunk: %s' % (
              B_CORPUS, l_corpus, W.launch_config(B_CORPUS), geo,
              k2_resident, k2_resident //
              torch.cuda.get_device_properties(dev).multi_processor_count,
              K2.launch_config(B_CORPUS, l_corpus, FRAMES,
-                              k2_resident)['blocks']))
+                              k2_resident)['blocks'],
+             SW.launch_config(1 << 24)))
 
     # -- 2. K1 against its plain version --
     t0 = time.perf_counter()
@@ -2471,148 +2762,11 @@ def main() -> int:
                       % (k, v[0], v[1], v[2]) for k, v in sharded.items()),
             single_ms, int(rtotal), time.perf_counter() - t0))
 
-    # -- 9. the sequence-parallel scan --
-    from zkstream_tpu_torch.ops.frame_scan import (
-        frame_starts_pointer_doubling)
-
-    t0 = time.perf_counter()
-
-    def padded(s: bytes, sp: int):
-        N = -(-(len(s) + 8) // (4 * sp)) * 4 * sp
-        pad = np.zeros(N, np.uint8)
-        pad[:len(s)] = np.frombuffer(s, np.uint8)
-        return pad
-
-    sw_err = [0]
-
-    def chunk_check(pad, sp: int, n: int) -> int:
-        """Each chunk's kernel walk from its true entry == the plain
-        walk (the largest difference of exit, flags and mask kept in
-        ``sw_err``); returns the frames found."""
-        C, entry, found = len(pad) // sp, 0, 0
-        for i in range(sp):
-            ext = np.concatenate([pad[i * C:(i + 1) * C],
-                                  pad[((i + 1) % sp) * C:][:4]])
-            end = min(i * C + C, n)
-            q, m, b = SW.walk_plain(torch.from_numpy(ext), i * C, end, n,
-                                    entry)
-            st = SW.new_state(C, dev)
-            SW.seq_walk(torch.from_numpy(ext).to(dev), i * C, end, n,
-                        torch.tensor(entry, dtype=torch.int32, device=dev),
-                        st)
-            e = max(abs(int(st.exit) - q), abs(int(st.valid) - 1),
-                    int(bool(st.bad) != b),
-                    int((st.mask.cpu() != m).sum()))
-            sw_err[0] = max(sw_err[0], e)
-            if e:
-                raise AssertionError('chunk walk %d of %d: kernel (%d, %s) '
-                                     'vs plain (%d, %s), max |d| %d' % (
-                                         i, sp, int(st.exit), bool(st.bad),
-                                         q, b, e))
-            entry = q
-            found += int(m.sum())
-        return found
-
-    def scan_check(s: bytes, sp: int, what: str):
-        """The sp scan of ``s`` on the card == the plain scan (CPU
-        shards) == pointer doubling, and each chunk's walk == plain."""
-        pad = padded(s, sp)
-        dpad = torch.from_numpy(pad).to(dev)
-        scan = PAR.seq_parallel_frame_scan(
-            PAR.make_mesh(dp=1, sp=sp, devices=[dev] * sp))
-        torch.cuda.synchronize()
-        SW.launches = 0
-        got = scan(dpad, len(s))
-        torch.cuda.synchronize()
-        launches = SW.launches
-        if launches != 1 + max(sp - 1, 1) * sp:
-            raise AssertionError('%s sp=%d: %d chunk-walk launches'
-                                 % (what, sp, launches))
-        want = PAR.seq_parallel_frame_scan(PAR.make_mesh(
-            dp=1, sp=sp, devices=['cpu'] * sp))(torch.from_numpy(pad), len(s))
-        dbl, dbad = frame_starts_pointer_doubling(dpad, len(s))
-        for a, b in zip(want, got):
-            if not torch.equal(a, b.cpu()):
-                raise AssertionError('%s sp=%d: scan differs from the plain '
-                                     'scan' % (what, sp))
-        if not (torch.equal(dbl.cpu(), want[0]) and bool(dbad) == bool(
-                want[2])):
-            raise AssertionError('%s sp=%d: scan differs from pointer '
-                                 'doubling' % (what, sp))
-        if chunk_check(pad, sp, len(s)) != int(want[1]):
-            raise AssertionError('%s sp=%d: chunk walks miscount' % (what,
-                                                                     sp))
-        return scan, dpad, got, launches
-
+    # -- 9. the sequence-parallel scan and its chunk walk --
     stream = b''.join(buf_np[i, :lens_np[i]].tobytes() for i in range(FLEET))
-    n9 = len(stream)
-    pad1 = padded(stream, 1)
-    tp = time.perf_counter()
-    q_full, mask_full, bad_full = SW.walk_plain(
-        torch.from_numpy(np.concatenate([pad1, pad1[:4]])), 0, n9, n9, 0)
-    plain_walk_ms = (time.perf_counter() - tp) * 1e3
-    frames9 = int(mask_full.sum())
-    if frames9 != FLEET * FRAMES or bad_full or q_full != n9:
-        raise AssertionError('plain walk: %d frames, bad %s, exit %d'
-                             % (frames9, bad_full, q_full))
-    scans = {}
-    for sp in (1, 4):
-        scan, dpad, got, sp_launches = scan_check(stream, sp, 'corpus')
-        if int(got[1]) != frames9 or bool(got[2]) or not torch.equal(
-                got[0].cpu()[:n9], mask_full[:n9]):
-            raise AssertionError('sp=%d: the scan != the plain cursor walk'
-                                 % sp)
-        scan(dpad, n9)
-        scans[sp] = (sp_launches,
-                     _time_ms(torch, lambda: scan(dpad, n9), 3))
-        del dpad, got
-    sw_launches = scans[4][0]
-    body = struct.pack('>iqi', 5, 42, 0) + bytes(range(256)) * 8
-    span = (struct.pack('>i', len(body)) + body + struct.pack('>i', 16)
-            + struct.pack('>iqi', 6, 43, 0))
-    _sc, _d, sgot, _l = scan_check(span, 4, 'spanning')
-    bad9 = stream[:slots[3]['off']] + struct.pack('>i', -7) + stream[:4096]
-    _sc, _d, bgot, _l = scan_check(bad9, 4, 'bad prefix')
-    if int(sgot[1]) != 2 or bool(sgot[2]) or int(bgot[1]) != 3 \
-            or not bool(bgot[2]):
-        raise AssertionError('spanning / bad-prefix streams: %d frames (bad '
-                             '%s), %d frames (bad %s)' % (
-                                 int(sgot[1]), bool(sgot[2]), int(bgot[1]),
-                                 bool(bgot[2])))
-    # one whole-stream walk: warm, and with the stream evicted from L2
-    ext1 = torch.from_numpy(np.concatenate([pad1, pad1[:4]])).to(dev)
-    st1 = SW.new_state(len(pad1), dev)
-    zero = torch.zeros((), dtype=torch.int32, device=dev)
-
-    def walk():
-        st1.valid.zero_()
-        SW.seq_walk(ext1, 0, n9, n9, zero, st1)
-
-    walk()
-    if not torch.equal(st1.mask.cpu()[:n9], mask_full[:n9]) \
-            or int(st1.exit) != q_full:
-        raise AssertionError('whole-stream kernel walk != plain walk')
-    walk_ms = _time_ms(torch, walk, 3)
-    walk_cold_ms = _cold_ms(torch, walk, 3)
-    walk_bound_b = SW.bound_bytes(frames9, len(pad1))
-    walk_bound_ms = walk_bound_b / HBM_BYTES_PER_S * 1e3
-    del ext1, st1
-    # the walk is one dependent round trip a frame and nothing else in
-    # flight: warm, each is an L2 hit; cold, a device-memory access
-    _log('# phase 9 on %s: one stream of %d bytes (%d frames); sp scan == '
-         'plain scan == pointer doubling == plain cursor walk, every chunk '
-         'walk == plain (tolerance 0), at sp=1 (%d launches) and sp=4 (%d '
-         'launches = 1 + 3 ring steps x 4 shards); spanning frame and bad '
-         'prefix at sp=4 too; scan %.3f ms (sp=1), %.3f ms (sp=4); one '
-         'whole-stream kernel walk %.3f ms warm (%.1f ns a frame), %.3f ms '
-         'with the stream evicted from L2 (%.1f ns a frame: one dependent '
-         'round trip a frame, its latency floor), plain walk on the host '
-         '%.1f ms; bound %.4f ms (%d bytes at 3.35 TB/s); K1\'s step on 256 '
-         'rows, for comparison, %.1f ns; %.2f s'
-         % (smi, n9, frames9, scans[1][0], sw_launches, scans[1][1],
-            scans[4][1], walk_ms, walk_ms * 1e6 / frames9, walk_cold_ms,
-            walk_cold_ms * 1e6 / frames9, plain_walk_ms, walk_bound_ms,
-            walk_bound_b, floor_ms * 1e6 / FRAMES, time.perf_counter() - t0))
+    seq9 = _seq_phase(PAR, SW, dev, smi, stream, slots[3]['off'],
+                      FLEET * FRAMES)
+    del stream
 
     # -- 10. MeshFleetIngest, four shards on the card --
     mesh_runs = {
@@ -2635,9 +2789,16 @@ def main() -> int:
     finally:
         gc.unfreeze()
     t0 = time.perf_counter()
+    SW.launches = SW.prepare_launches = 0
     dry = dryrun_multichip(4, devices=[dev] * 4)
+    torch.cuda.synchronize()
+    dry_sw = (SW.prepare_launches, SW.launches)
+    if dry_sw != (4, 2 * (1 + 3 * 4)):
+        raise AssertionError('dryrun_multichip(4): %d exit-map and %d '
+                             'chunk-walk launches' % dry_sw)
     _log('# phase 12 dryrun_multichip(4) on %s, live fleets through both '
-         'mesh ingests: %s; %.2f s' % (smi, dry, time.perf_counter() - t0))
+         'mesh ingests: %s; its sp=4 scan: %d exit-map and %d chunk-walk '
+         'launches; %.2f s' % (smi, dry, *dry_sw, time.perf_counter() - t0))
 
     # -- 13. the ensemble under a leader SIGKILL, then the campaigns --
     gc.collect()
@@ -2659,6 +2820,7 @@ def main() -> int:
         gc.unfreeze()
 
     # -- report --
+    seq_t = seq9['tiles'][SW.DEFAULT_TILE]
     kernels = [{
         'name': 'K1 wire_scan (frame scan + reply-header parse)',
         'route': 'cuda',
@@ -2726,24 +2888,62 @@ def main() -> int:
                 bench14['flagship']['k2'],
             'phase 15 sweep_crossover ingest-py-dev cells': tools15['k2']},
     }, {
-        'name': 'seq_walk (the sequence-parallel scan\'s chunk walk)',
+        'name': 'seq_walk_prepare (the chunk walk\'s tile exit map)',
         'route': 'cuda',
         'source': 'zkstream_tpu_torch/csrc/wire_scan.cu',
         'replaces': SW.REPLACES,
-        'launches': sw_launches,
-        'max_abs_err': sw_err[0],
-        'equal': sw_err[0] == 0,
-        'ms': walk_ms,
-        'cold_ms': walk_cold_ms,
-        'plain_ms': plain_walk_ms,
-        'plain_on': 'host CPU (the plain walk serves CPU tensors only)',
-        'bound_ms': walk_bound_ms,
+        'launches': seq9['scans'][4]['counts'][0],
+        'max_abs_err': seq9['err']['prepare'],
+        'equal': seq9['err']['prepare'] == 0,
+        'ms': seq_t['prepare_ms'],
+        'device_ms': seq_t['prepare_device_ms'],
+        'cold_ms': seq_t['prepare_cold_ms'],
+        'plain_ms': seq9['plain_map_ms'],
+        'plain_on': 'the card (torch pointer doubling)',
+        'bound_ms': seq9['prepare_bound_ms'],
         'bound_by': 'bytes',
-        'bound_share': walk_bound_ms / walk_ms,
-        'ns_a_frame': walk_ms * 1e6 / frames9,
-        'cold_ns_a_frame': walk_cold_ms * 1e6 / frames9,
+        'bound_share': seq9['prepare_bound_ms'] / seq_t['prepare_ms'],
         'library_ms': None,
-        'shape': {'bytes': n9, 'frames': frames9},
+        'tile': SW.DEFAULT_TILE,
+        'shape': {'bytes': seq9['bytes'], 'frames': seq9['frames']},
+        'launches_by_path': {
+            'phase 9 sp scan, sp=1': seq9['scans'][1]['counts'][0],
+            'phase 9 sp scan, sp=4': seq9['scans'][4]['counts'][0],
+            'phase 12 dryrun_multichip(4)': dry_sw[0]},
+    }, {
+        'name': 'seq_walk (the chunk walk: hop chain + per-tile mark)',
+        'route': 'cuda',
+        'source': 'zkstream_tpu_torch/csrc/wire_scan.cu',
+        'replaces': SW.REPLACES,
+        'launches': seq9['scans'][4]['counts'][1],
+        'max_abs_err': seq9['err']['walk'],
+        'equal': seq9['err']['walk'] == 0,
+        'ms': seq_t['walk_ms'],
+        'device_ms': seq_t['walk_device_ms'],
+        'cold_ms': seq_t['walk_cold_ms'],
+        'with_exit_map_ms': seq_t['both_ms'],
+        'with_exit_map_cold_ms': seq_t['both_cold_ms'],
+        'plain_ms': seq9['plain_walk_ms'],
+        'plain_on': 'host CPU (the plain walk serves CPU tensors only)',
+        'bound_ms': seq9['walk_bound_ms'],
+        'bound_by': 'bytes',
+        'bound_share': seq9['walk_bound_ms'] / seq_t['walk_ms'],
+        'with_exit_map_bound_share':
+            seq9['walk_bound_ms'] / seq_t['both_ms'],
+        'design_floor_ms': seq9['stream_bound_ms'],
+        'design_floor_by': 'bytes: the stream read and the mask written '
+                           'once, as this design\'s mark reads the stream',
+        'library_ms': None,
+        'tile': SW.DEFAULT_TILE,
+        'shape': {'bytes': seq9['bytes'], 'frames': seq9['frames']},
+        'scan_ms': {'sp=1': seq9['scans'][1]['ms'],
+                    'sp=4': seq9['scans'][4]['ms']},
+        'scan_by_tile': {
+            '%d sp=%d' % k: v for k, v in seq9['scan_tiles'].items()},
+        'launches_by_path': {
+            'phase 9 sp scan, sp=1': seq9['scans'][1]['counts'][1],
+            'phase 9 sp scan, sp=4': seq9['scans'][4]['counts'][1],
+            'phase 12 dryrun_multichip(4)': dry_sw[1]},
     }]
     _log('# total %.1f s' % (time.perf_counter() - t_start))
     print(smi)

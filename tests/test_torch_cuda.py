@@ -276,8 +276,9 @@ def _walk_streams():
 def test_seq_scan_and_chunk_walk_match_plain_on_card(cuda_device, sp, name):
     """The sp scan on ``sp`` shards of one card equals the same scan on
     CPU shards (the plain walk) and the pointer-doubling scan, with one
-    chunk-walk launch a shard a ring step; each chunk's walk, launched
-    alone from its true entry, equals the plain walk."""
+    exit-map launch a chunk and two walk launches (hop chain, mark) a
+    shard a ring step; each chunk's map and walk, launched alone from
+    its true entry, equal ``tile_exits_plain`` and the plain walk."""
     from zkstream_tpu_torch.ops import seq_walk as SW
     from zkstream_tpu_torch.ops.frame_scan import (
         frame_starts_pointer_doubling)
@@ -288,11 +289,12 @@ def test_seq_scan_and_chunk_walk_match_plain_on_card(cuda_device, sp, name):
     pad = np.zeros(N, np.uint8)
     pad[:len(s)] = np.frombuffer(s, np.uint8)
     mesh = make_mesh(dp=1, sp=sp, devices=[cuda_device] * sp)
-    before = SW.launches
+    before = SW.launches, SW.prepare_launches
     got = seq_parallel_frame_scan(mesh)(torch.from_numpy(pad).to(cuda_device),
                                         len(s))
     torch.cuda.synchronize()
-    assert SW.launches == before + 1 + max(sp - 1, 1) * sp
+    assert SW.prepare_launches == before[1] + sp
+    assert SW.launches == before[0] + 2 * (1 + max(sp - 1, 1) * sp)
     want = seq_parallel_frame_scan(make_mesh(dp=1, sp=sp, devices=['cpu'] * sp))(
         torch.from_numpy(pad), len(s))
     for a, b in zip(want, got):
@@ -307,12 +309,81 @@ def test_seq_scan_and_chunk_walk_match_plain_on_card(cuda_device, sp, name):
         end = min(i * C + C, len(s))
         q, mask, bad = SW.walk_plain(ext, i * C, end, len(s), entry)
         st = SW.new_state(C, cuda_device)
-        SW.seq_walk(ext.to(cuda_device), i * C, end, len(s),
+        ext_d = ext.to(cuda_device)
+        SW.seq_walk_prepare(ext_d, i * C, end, len(s), st)
+        assert torch.equal(st.exits.cpu(), SW.tile_exits_plain(
+            ext, i * C, end, len(s), st.tile))
+        SW.seq_walk(ext_d, i * C, end, len(s),
                     torch.tensor(entry, dtype=torch.int32,
                                  device=cuda_device), st)
         assert (int(st.valid), int(st.exit), bool(st.bad)) == (1, q, bad)
         assert torch.equal(st.mask.cpu(), mask)
         entry = q
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('tile', [8, 16, 64, 1 << 15])
+def test_exit_map_and_chunk_walk_match_plain_on_random_chunks(cuda_device,
+                                                              tile):
+    """The exit-map kernel == ``tile_exits_plain`` and the hop chain +
+    mark == ``walk_plain`` on random chunks (frames of a stream, sparse
+    junk, a zero first byte), from entries inside, before and past the
+    chunk and saturated, with ``chunk_end`` inside or before it."""
+    from zkstream_tpu_torch.ops import seq_walk as SW
+
+    s = _walk_streams()['corpus']
+    rng = np.random.RandomState(tile)
+    zero = torch.zeros((), dtype=torch.int32, device=cuda_device)
+    for _ in range(60):
+        C = int(rng.choice([1, 7, 40, 300, 1000, 5000]))
+        if rng.rand() < 0.5:
+            base = int(rng.randint(0, len(s) - C - 4))
+            ext = np.frombuffer(s[base:base + C + 4], np.uint8).copy()
+            n = int(rng.choice([len(s), base + rng.randint(0, C + 8)]))
+        else:
+            ext = np.where(rng.rand(C + 4) < 0.3, rng.randint(0, 256, C + 4),
+                           0).astype(np.uint8)
+            base, n = int(rng.randint(0, 100)), int(rng.randint(0, 300))
+        if rng.rand() < 0.3:
+            ext[0] = 0
+        end = min(base + C, n)
+        t = torch.from_numpy(ext)
+        d = t.to(cuda_device)
+        # (entries before the chunk start near it: from far before, a
+        # zero first byte makes both walks take 4 bytes a step)
+        for entry in (base + int(rng.randint(0, C)), base,
+                      max(base - int(rng.randint(1, 400)), 0),
+                      max(base - 4, 0), base + C + 1, SW.SATURATED):
+            st = SW.new_state(C, cuda_device, tile)
+            SW.seq_walk_prepare(d, base, end, n, st)
+            assert torch.equal(st.exits.cpu(), SW.tile_exits_plain(
+                t, base, end, n, tile))
+            SW.seq_walk(d, base, end, n, zero + entry, st)
+            q, mask, bad = SW.walk_plain(t, base, end, n, entry)
+            assert (int(st.valid), int(st.exit), bool(st.bad)) == \
+                (1, q, bad), (C, base, end, n, entry)
+            assert torch.equal(st.mask.cpu(), mask)
+            # a second offer is not adopted: the state keeps its walk
+            SW.seq_walk(d, base, end, n, zero + base, st)
+            assert int(st.exit) == q and torch.equal(st.mask.cpu(), mask)
+
+
+@pytest.mark.cuda
+def test_chunk_walk_on_card_needs_its_exit_map(cuda_device):
+    """A walk on the card whose state was never prepared, or was
+    prepared for another chunk end, raises; nothing walks serially."""
+    from zkstream_tpu_torch.ops import seq_walk as SW
+
+    ext = torch.zeros(64 + 4, dtype=torch.uint8, device=cuda_device)
+    st = SW.new_state(64, cuda_device)
+    zero = torch.zeros((), dtype=torch.int32, device=cuda_device)
+    before = SW.launches
+    with pytest.raises(RuntimeError, match='not prepared'):
+        SW.seq_walk(ext, 0, 64, 64, zero, st)
+    SW.seq_walk_prepare(ext, 0, 64, 64, st)
+    with pytest.raises(RuntimeError, match='not prepared'):
+        SW.seq_walk(ext, 0, 60, 64, zero, st)
+    assert SW.launches == before and int(st.valid) == 0
 
 
 @pytest.mark.cuda

@@ -698,8 +698,51 @@ __global__ void __launch_bounds__(32 * kK2MaxWarps, 4)
 // absolute cursor the previous chunk handed on and follows the frames
 // until the cursor passes chunk_end.  `ext` is the chunk (C bytes from
 // absolute offset `base`) plus a 4-byte halo of the next chunk, so a
-// prefix straddling the boundary is readable here.  Every byte offset is
-// clamped to [0, C+3], as the plain version's _byte_at clamps it.
+// prefix straddling the boundary is readable here.
+//
+// What bounds it on an H100: latency.  A frame's start depends on the
+// length of the frame before it, so a walk that follows the frames one by
+// one makes one dependent memory round trip a frame, all of it after the
+// chunk's entry is known, on the ring's critical path.  The design moves
+// almost all of that work to before the entry is known, and makes it
+// parallel:
+//
+// 1. seq_prepare_kernel, once a chunk before the ring: the chunk is cut
+//    into tiles of T = 2^tshift bytes, one block a tile.  The block loads
+//    the tile and a 4-byte look-ahead into shared memory (16-byte loads),
+//    gives every offset its successor under _walk's rules, and doubles
+//    pointers in place until every offset points at the last offset of
+//    its walk inside the tile (every hop moves 4 bytes or more, so about
+//    log2(T/4) rounds).  It writes the exit map, int32 [C]: for each
+//    offset, the first cursor at or past the tile's stop
+//    (min(tile end, chunk_end)), the cursor where the walk ends for want
+//    of a prefix (cursor + 4 > n) or at chunk_end, kExitBad, or
+//    kExitStopped (a truncated frame).
+// 2. seq_hop_kernel, each ring step: it adopts the offered entry on the
+//    device (as _walk's ring does: only if the chunk has not walked and
+//    an entry was offered) and follows the hop chain q <- exits[q - base],
+//    one dependent read a tile, recording each visited tile's first
+//    frame.  A frame longer than a tile skips tiles in one hop.
+// 3. seq_mark_kernel, right after it: one block a tile walks that tile's
+//    frames from its first frame in shared memory and writes the tile's
+//    mask bytes.  It is a launch of its own, not blocks that wait on the
+//    hop chain's flags: a block that spins on another block's progress
+//    can hold an SM that block needs, and the chain is what the mark
+//    would wait for anyway.
+//
+// Every byte offset is clamped to [0, C+3], as the plain version's
+// _byte_at clamps it; inside the chunk no read reaches past the halo, so
+// only an entry before the chunk reads a clamped byte (hop kernel).
+
+constexpr int32_t kExitBad = -1;       // ops/seq_walk.py EXIT_BAD
+constexpr int32_t kExitStopped = -2;   // ops/seq_walk.py EXIT_STOPPED
+constexpr int32_t kSaturated = 1 << 30;
+constexpr int kMinTileShift = 3;
+constexpr int kMaxTileShift = 16;      // local offsets fit in uint16
+constexpr int kPrepMaxThreads = 1024;
+constexpr int kMarkThreads = 256;
+constexpr int kHopThreads = 256;
+
 struct ChunkReader {
   const uint8_t* ext;
   u32 base;
@@ -714,42 +757,211 @@ struct ChunkReader {
   }
 };
 
-// One thread.  The ring hands the entry cursor over in device memory: the
-// walk runs only if this chunk has not walked yet (*valid == 0) and an
-// entry was offered (*rcv >= 0), so the ring makes no host round trip a
-// step.  A missing 4-byte prefix (cur + 4 > n) ends the walk with the exit
-// at the cursor; a bad length or a truncated frame ends the whole
-// stream's decode, so the exit saturates to 1 << 30 and every later chunk
-// adopts an entry past its end.  next_frame() returns -1 for both of the
-// latter and for a missing prefix, so the loop tests the prefix first.
-__global__ void seq_walk_kernel(const uint8_t* __restrict__ ext, u32 C,
-                                u32 base, u32 chunk_end, u32 n,
-                                const int32_t* __restrict__ rcv,
-                                int32_t* __restrict__ valid,
-                                int32_t* __restrict__ exit_q,
-                                uint8_t* __restrict__ mask,
-                                uint8_t* __restrict__ bad_out) {
-  if (*valid != 0) return;
-  const int32_t entry = *rcv;
-  if (entry < 0) return;
+// Shared-memory layout of a tile's bytes: T + 4 bytes, rounded up to 16.
+__host__ __device__ __forceinline__ u32 tile_bytes(u32 T) {
+  return (T + 4 + 15) & ~15u;
+}
+
+// Bytes [lo, lo + T + 4) of ext, cut at E, into shared memory at `sb`:
+// 16-byte loads where the tile starts 16-byte aligned, bytes after.
+__device__ __forceinline__ void load_tile(const uint8_t* __restrict__ ext,
+                                          u32 E, u32 lo, u32 T,
+                                          uint8_t* sb) {
+  const u32 nb = min(lo + T + 4, E) - lo;
+  u32 done = 0;
+  if ((reinterpret_cast<uintptr_t>(ext + lo) & 15) == 0) {
+    const uint4* src = reinterpret_cast<const uint4*>(ext + lo);
+    uint4* dst = reinterpret_cast<uint4*>(sb);
+    const u32 nv = nb >> 4;
+    for (u32 k = threadIdx.x; k < nv; k += blockDim.x) dst[k] = __ldg(src + k);
+    done = nv << 4;
+  }
+  for (u32 k = done + threadIdx.x; k < nb; k += blockDim.x)
+    sb[k] = __ldg(ext + lo + k);
+}
+
+__device__ __forceinline__ int32_t be_shared(const uint8_t* sb, u32 i) {
+  return static_cast<int32_t>((u32(sb[i]) << 24) | (u32(sb[i + 1]) << 16) |
+                              (u32(sb[i + 2]) << 8) | u32(sb[i + 3]));
+}
+
+// One tile's view of the walk: absolute base, chunk_end, n, the tile's
+// stop min(base + lo + T, chunk_end) and its first offset lo.  Cursors are
+// 64-bit here so no sum of a cursor and a length wraps.
+struct TileWalk {
+  long long base, chunk_end, n, stop;
+  u32 lo;
+  // _walk's step at tile offset i: true (and the successor's tile offset
+  // in `next`) when the frame is complete and the next prefix lies before
+  // the stop; else false with the exit-map value in `val`.
+  __device__ __forceinline__ bool step(const uint8_t* sb, u32 i, int32_t& val,
+                                       u32& next) const {
+    const long long q = base + lo + i;
+    if (q >= chunk_end || q + 4 > n) {
+      val = static_cast<int32_t>(q);
+      return false;
+    }
+    const int32_t ln = be_shared(sb, i);
+    if (ln < 0 || ln > kMaxPacket) {
+      val = kExitBad;
+      return false;
+    }
+    const long long succ = q + 4 + ln;
+    if (succ > n) {
+      val = kExitStopped;
+      return false;
+    }
+    if (succ >= stop) {
+      val = static_cast<int32_t>(succ);
+      return false;
+    }
+    next = static_cast<u32>(succ - base - lo);
+    return true;
+  }
+};
+
+// Step 1: the tile exit map.  Shared memory: tile_bytes(T) bytes, then T
+// uint16 pointers.  A pointer at itself marks the end of the walk inside
+// the tile; pointer jumping in place is safe because every value a thread
+// can read is a later offset on the same walk, so a round is at least as
+// far along as a synchronous one.
+__global__ void __launch_bounds__(kPrepMaxThreads)
+    seq_prepare_kernel(const uint8_t* __restrict__ ext, u32 C, int tshift,
+                       u32 base, u32 chunk_end, u32 n,
+                       int32_t* __restrict__ exits) {
+  extern __shared__ __align__(16) uint8_t smem[];
+  const u32 T = 1u << tshift;
+  const u32 lo = blockIdx.x << tshift;
+  const u32 len = min(T, C - lo);
+  uint8_t* sb = smem;
+  volatile uint16_t* ptr = reinterpret_cast<uint16_t*>(smem + tile_bytes(T));
+  load_tile(ext, C + 4, lo, T, sb);
+  __syncthreads();
+  const TileWalk tw{base, chunk_end, n,
+                    min(static_cast<long long>(base) + lo + T,
+                        static_cast<long long>(chunk_end)),
+                    lo};
+  for (u32 i = threadIdx.x; i < len; i += blockDim.x) {
+    int32_t v;
+    u32 nx;
+    ptr[i] = static_cast<uint16_t>(tw.step(sb, i, v, nx) ? nx : i);
+  }
+  for (int moved = 1; __syncthreads_or(moved);) {
+    moved = 0;
+    for (u32 i = threadIdx.x; i < len; i += blockDim.x) {
+      const u32 p = ptr[i], pp = ptr[p];
+      if (pp != p) {
+        ptr[i] = static_cast<uint16_t>(pp);
+        moved = 1;
+      }
+    }
+  }
+  for (u32 i = threadIdx.x; i < len; i += blockDim.x) {
+    int32_t v;
+    u32 nx;
+    tw.step(sb, ptr[i], v, nx);  // the walk's last offset: never pending
+    exits[lo + i] = v;
+  }
+}
+
+// Step 2: the hop chain, one block.  tile_entry is int32 [ntiles + 1]: the
+// tile offset of each visited tile's first frame (-1 elsewhere), and in
+// slot ntiles whether this call walked (the mark kernel reads it).  The
+// threads clear the entries, then thread 0 walks.  An entry before the
+// chunk steps with clamped reads until it reaches the chunk (the ring
+// hands on such an entry only at the stream's end, where the walk stops
+// at once).
+__global__ void __launch_bounds__(kHopThreads)
+    seq_hop_kernel(const uint8_t* __restrict__ ext, u32 C, int tshift,
+                   u32 base, u32 chunk_end, u32 n,
+                   const int32_t* __restrict__ exits,
+                   const int32_t* __restrict__ rcv, int32_t* __restrict__ valid,
+                   int32_t* __restrict__ exit_q, uint8_t* __restrict__ bad_out,
+                   int32_t* __restrict__ tile_entry, u32 ntiles) {
+  __shared__ int32_t entry;
+  if (threadIdx.x == 0) entry = *valid == 0 ? *rcv : -1;
+  __syncthreads();
+  if (entry < 0) {
+    if (threadIdx.x == 0) tile_entry[ntiles] = 0;
+    return;
+  }
+  for (u32 t = threadIdx.x; t < ntiles; t += blockDim.x) tile_entry[t] = -1;
+  __syncthreads();
+  if (threadIdx.x != 0) return;
   *valid = 1;
   const ChunkReader rd{ext, base, C + 4};
   u32 q = static_cast<u32>(entry);
   bool bad = false, stopped = false;
-  while (q < chunk_end && q + 4 <= n) {
-    const int32_t ln = next_frame(rd, n, q, bad);
-    if (ln < 0) {
-      stopped = !bad;
-      break;
+  while (!bad && !stopped && q < chunk_end && q + 4 <= n) {
+    if (q >= base) {
+      const u32 s = q - base;
+      tile_entry[s >> tshift] = static_cast<int32_t>(s);
+      const int32_t e = exits[s];
+      if (e == kExitBad)
+        bad = true;
+      else if (e == kExitStopped)
+        stopped = true;
+      else
+        q = static_cast<u32>(e);
+    } else {
+      const int32_t ln = next_frame(rd, n, q, bad);
+      if (ln < 0) {
+        stopped = !bad;
+        break;
+      }
+      q += 4 + u32(ln);
     }
-    const int64_t rel = static_cast<int64_t>(q) - base;
-    if (rel >= 0 && rel < C) mask[rel] = 1;
-    q += 4 + u32(ln);
   }
-  *exit_q = (bad || stopped) ? (1 << 30) : static_cast<int32_t>(q);
+  *exit_q = (bad || stopped) ? kSaturated : static_cast<int32_t>(q);
   *bad_out = bad ? 1 : 0;
+  tile_entry[ntiles] = 1;
 }
 
+// Step 3: the mark, one block a tile, only after a call that walked.
+// Shared memory: T mask bytes (rounded up to 16), then the tile's bytes.
+// A tile the walk did not visit is written all zero.
+__global__ void __launch_bounds__(kMarkThreads)
+    seq_mark_kernel(const uint8_t* __restrict__ ext, u32 C, int tshift,
+                    u32 base, u32 chunk_end, u32 n,
+                    const int32_t* __restrict__ tile_entry, u32 ntiles,
+                    uint8_t* __restrict__ mask) {
+  if (tile_entry[ntiles] == 0) return;
+  extern __shared__ __align__(16) uint8_t smem[];
+  const u32 T = 1u << tshift;
+  const u32 lo = blockIdx.x << tshift;
+  const u32 len = min(T, C - lo);
+  const u32 mbytes = (T + 15) & ~15u;
+  uint8_t* sm = smem;
+  uint8_t* sb = smem + mbytes;
+  const int32_t s0 = tile_entry[blockIdx.x];
+  uint4* sm4 = reinterpret_cast<uint4*>(sm);
+  for (u32 k = threadIdx.x; k < mbytes >> 4; k += blockDim.x)
+    sm4[k] = make_uint4(0, 0, 0, 0);
+  if (s0 >= 0) load_tile(ext, C + 4, lo, T, sb);
+  __syncthreads();
+  if (s0 >= 0 && threadIdx.x == 0) {
+    const long long nn = n;
+    const long long stop = min(static_cast<long long>(base) + lo + T,
+                               static_cast<long long>(chunk_end));
+    long long q = static_cast<long long>(base) + s0;
+    while (q < stop && q + 4 <= nn) {
+      const u32 i = static_cast<u32>(q - base) - lo;
+      const int32_t ln = be_shared(sb, i);
+      if (ln < 0 || ln > kMaxPacket || q + 4 + ln > nn) break;
+      sm[i] = 1;
+      q += 4 + ln;
+    }
+  }
+  __syncthreads();
+  u32 done = 0;
+  if ((reinterpret_cast<uintptr_t>(mask + lo) & 15) == 0) {
+    uint4* dst = reinterpret_cast<uint4*>(mask + lo);
+    for (u32 k = threadIdx.x; k < len >> 4; k += blockDim.x) dst[k] = sm4[k];
+    done = len & ~15u;
+  }
+  for (u32 k = done + threadIdx.x; k < len; k += blockDim.x)
+    mask[lo + k] = sm[k];
+}
 }  // namespace
 
 // Plain C launchers, bound with ctypes.  Each launches on `stream` and
@@ -822,21 +1034,103 @@ extern "C" int full_scan_launch(const void* buf, const void* lens, int B,
   return static_cast<int>(cudaGetLastError());
 }
 
-// The chunk walk: one thread, one chunk.  Cursors and lengths are below
-// 2^31 (the wrapper checks C, base and n), so the u32 arithmetic of
-// next_frame() does not wrap.
-extern "C" int seq_walk_launch(const void* ext, long long C, long long base,
-                               long long chunk_end, long long n,
-                               const void* rcv, void* valid, void* exit_q,
-                               void* mask, void* bad, void* stream) {
-  if (C < 1 || C + 4 > INT32_MAX || base < 0 || base > INT32_MAX ||
-      chunk_end < 0 || chunk_end > INT32_MAX || n < 0 || n > INT32_MAX)
+// The chunk walk's launchers.  Cursors are checked below 2^31 with
+// base + C + 4 among them, so a cursor inside the chunk is an int32, and
+// chunk_end may not pass the chunk (the exit map covers it alone).
+static bool chunk_args_ok(long long C, int tshift, long long base,
+                          long long chunk_end, long long n) {
+  return C >= 1 && base >= 0 && base + C + 4 <= INT32_MAX && chunk_end >= 0 &&
+         chunk_end <= base + C && n >= 0 && n <= INT32_MAX &&
+         tshift >= kMinTileShift && tshift <= kMaxTileShift;
+}
+
+static u32 tile_count(long long C, int tshift) {
+  return static_cast<u32>((C + (1LL << tshift) - 1) >> tshift);
+}
+
+// Lifts a kernel's dynamic shared memory limit to `smem` on the current
+// device (needed above 48 KB); `seen` remembers the largest set a device.
+template <class Kernel>
+static cudaError_t allow_smem(Kernel* fn, int smem, int* seen) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev < 0 || dev >= 64) return cudaErrorInvalidDevice;
+  if (smem <= seen[dev]) return cudaSuccess;
+  e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           smem);
+  if (e == cudaSuccess) seen[dev] = smem;
+  return e;
+}
+
+// Shared memory and threads of the three kernels at tile 2^tshift: the
+// wrapper's launch_config() reads them from here.
+extern "C" int seq_walk_geometry(int tshift, int* prep_smem,
+                                 int* prep_threads, int* mark_smem,
+                                 int* mark_threads, int* hop_threads) {
+  if (tshift < kMinTileShift || tshift > kMaxTileShift)
     return static_cast<int>(cudaErrorInvalidValue);
-  seq_walk_kernel<<<1, 1, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(ext), static_cast<u32>(C),
+  const u32 T = 1u << tshift;
+  *prep_smem = static_cast<int>(tile_bytes(T) + 2 * T);
+  *prep_threads = T < 32 ? 32 : (T > kPrepMaxThreads ? kPrepMaxThreads
+                                                     : static_cast<int>(T));
+  *mark_smem = static_cast<int>(((T + 15) & ~15u) + tile_bytes(T));
+  *mark_threads = kMarkThreads;
+  *hop_threads = kHopThreads;
+  return 0;
+}
+
+extern "C" int seq_prepare_launch(const void* ext, long long C, int tshift,
+                                  long long base, long long chunk_end,
+                                  long long n, void* exits, void* stream) {
+  static int seen[64];
+  if (!chunk_args_ok(C, tshift, base, chunk_end, n))
+    return static_cast<int>(cudaErrorInvalidValue);
+  int smem, threads, ms, mt, ht;
+  seq_walk_geometry(tshift, &smem, &threads, &ms, &mt, &ht);
+  cudaError_t e = allow_smem(seq_prepare_kernel, smem, seen);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  seq_prepare_kernel<<<tile_count(C, tshift), threads, smem,
+                       static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint8_t*>(ext), static_cast<u32>(C), tshift,
       static_cast<u32>(base), static_cast<u32>(chunk_end), static_cast<u32>(n),
-      static_cast<const int32_t*>(rcv), static_cast<int32_t*>(valid),
-      static_cast<int32_t*>(exit_q), static_cast<uint8_t*>(mask),
-      static_cast<uint8_t*>(bad));
+      static_cast<int32_t*>(exits));
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int seq_hop_launch(const void* ext, long long C, int tshift,
+                              long long base, long long chunk_end,
+                              long long n, const void* exits, const void* rcv,
+                              void* valid, void* exit_q, void* bad,
+                              void* tile_entry, void* stream) {
+  if (!chunk_args_ok(C, tshift, base, chunk_end, n))
+    return static_cast<int>(cudaErrorInvalidValue);
+  seq_hop_kernel<<<1, kHopThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint8_t*>(ext), static_cast<u32>(C), tshift,
+      static_cast<u32>(base), static_cast<u32>(chunk_end), static_cast<u32>(n),
+      static_cast<const int32_t*>(exits), static_cast<const int32_t*>(rcv),
+      static_cast<int32_t*>(valid), static_cast<int32_t*>(exit_q),
+      static_cast<uint8_t*>(bad), static_cast<int32_t*>(tile_entry),
+      tile_count(C, tshift));
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int seq_mark_launch(const void* ext, long long C, int tshift,
+                               long long base, long long chunk_end,
+                               long long n, const void* tile_entry,
+                               void* mask, void* stream) {
+  static int seen[64];
+  if (!chunk_args_ok(C, tshift, base, chunk_end, n))
+    return static_cast<int>(cudaErrorInvalidValue);
+  int ps, pt, smem, threads, ht;
+  seq_walk_geometry(tshift, &ps, &pt, &smem, &threads, &ht);
+  cudaError_t e = allow_smem(seq_mark_kernel, smem, seen);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const u32 ntiles = tile_count(C, tshift);
+  seq_mark_kernel<<<ntiles, threads, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint8_t*>(ext), static_cast<u32>(C), tshift,
+      static_cast<u32>(base), static_cast<u32>(chunk_end), static_cast<u32>(n),
+      static_cast<const int32_t*>(tile_entry), ntiles,
+      static_cast<uint8_t*>(mask));
   return static_cast<int>(cudaGetLastError());
 }

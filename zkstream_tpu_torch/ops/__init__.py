@@ -9,8 +9,9 @@
   launch) and its plain version;
 - :mod:`full_scan` — kernel K2 (K1's walk plus the GET_DATA body in
   one CUDA launch) and its plain version;
-- :mod:`seq_walk` — the sequence-parallel scan's chunk walk (one CUDA
-  thread) and its plain version;
+- :mod:`seq_walk` — the sequence-parallel scan's chunk walk (a tile
+  exit map built before the ring, then a hop chain and a parallel
+  mark, three CUDA kernels) and its plain versions;
 - :mod:`replies` — the reply-body parse (fixed layouts and lists);
 - :mod:`bodies` — frame bodies sliced into a padded tensor;
 - :mod:`encode` — the inverse direction: field planes -> framed reply

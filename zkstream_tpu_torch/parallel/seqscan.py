@@ -16,9 +16,13 @@ boundaries around a ring, as the JAX package's ``ppermute`` ring does:
    one frame body spans whole shards (the cursor passes through).
    Each shard walks exactly once, when it adopts an entry; the
    ``valid`` flags, the offered cursors (``-1`` = none) and the walk
-   state live on the devices, and the walk itself (ops/seq_walk.py,
-   one CUDA thread on a card) decides whether to adopt, so a ring step
-   makes no host round trip.
+   state live on the devices, and the walk itself (ops/seq_walk.py)
+   decides whether to adopt, so a ring step makes no host round trip.
+   Before the first step every shard builds its chunk's tile exit map
+   (``seq_walk_prepare``), which needs no entry, so the shards build
+   theirs at once; a walk then takes one hop a tile of its chunk, not
+   one a frame.  Every map stays on its own shard: the ring
+   still hands one int32 cursor a step.
 3. **Local mark** — each shard emits the frame-start mask of its chunk;
    the mask count and ``bad`` sum over the shards.
 
@@ -35,8 +39,9 @@ from ..ops import seq_walk as SW
 from .mesh import Mesh
 
 
-def seq_parallel_frame_scan(mesh: Mesh):
-    """Build the sp-sharded scan for ``mesh``.
+def seq_parallel_frame_scan(mesh: Mesh, tile: int = SW.DEFAULT_TILE):
+    """Build the sp-sharded scan for ``mesh``, its chunk walks cut into
+    tiles of ``tile`` bytes (ops/seq_walk.py).
 
     Returns ``scan(buf, n) -> (is_start, total_frames, bad)``: ``buf``
     is uint8 ``[N]`` with N divisible by the sp axis size (chunks of 4
@@ -62,7 +67,9 @@ def seq_parallel_frame_scan(mesh: Mesh):
                for i in range(p)]
         base = [i * C for i in range(p)]
         end = [min(b + C, n) for b in base]
-        state = [SW.new_state(C, d) for d in devs]
+        state = [SW.new_state(C, d, tile) for d in devs]
+        for i in range(p):
+            SW.seq_walk_prepare(ext[i], base[i], end[i], n, state[i])
         # shard 0 learns its entry (cursor 0) at the start
         SW.seq_walk(ext[0], base[0], end[0], n,
                     torch.zeros((), dtype=torch.int32, device=devs[0]),

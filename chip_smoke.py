@@ -231,6 +231,27 @@ Phases (any failure exits non-zero; nothing is caught):
    --rounds 1`` (exit 0) and a short ``profile_hotpath`` decode run.
    K1 and K2 launches, from 0 at the phase's start, must equal the sum
    of its ingests' device ticks of each body mode.
+16. The tick program as a CUDA graph.  ``FleetIngest`` and the one-card
+   ``MeshFleetIngest`` capture each shape bucket's tick program once,
+   when the bucket warms (``FleetIngest._compile``,
+   ``ops/tick_graph.py``), and every device tick of phases 4, 7, 10 and
+   12-15 is one replay of it, whose K1 or K2 launches are counted per
+   replay.  Here, for host and device bodies, at a 32-client tick (the
+   first two frames of 32 corpus streams, ``max_frames`` 16) and at
+   phase 4's 2048 x 16384 bucket, and at that bucket over four dp
+   shards of the card: the bucket's warm (the eager warm-up run and the capture)
+   in ms and the graph memory pool's bytes after it; one replayed tick's
+   packed ints and bytes, which must equal the eager chain's on the same
+   staged inputs bit for bit, with exactly one K1 or K2 launch a shard
+   counted; then, eager chain against replay, the kernels a tick and
+   their device ms as ``torch.profiler`` traces them, the tick's time on
+   the card (CUDA events around ticks back to back), the host's time a
+   tick, and the device half (staging, copies, tick, readbacks,
+   synchronize) on the host clock.
+
+Phase 11's ``MultihostFleetIngest`` (a process group), the sharded
+decode of phase 8, the sp scan and the bench's direct calls to the
+kernels' wrappers run eagerly.
 
 The last lines are the card's name and power limit, one JSON object of
 kernels, and ``{"ok": true, "device": {...}}``.  Without a CUDA device
@@ -2001,6 +2022,194 @@ def _tools_phase(W, K2, smi: str, device: str = 'cuda') -> dict:
     return got
 
 
+# -- phase 16: the tick program as a CUDA graph --------------------------
+
+#: Phase 16's cells: rows, frames a stream and ticks timed.  "32
+#: clients" is a crossover cell's tick (32 streams, a few hundred bytes
+#: each, ``max_frames`` 16); "bucket" phase 4's 1,025 whole streams in
+#: the 2048 x 16384 bucket.
+GRAPH_TICKS = {'32 clients': 10, 'bucket': 5}
+
+
+def _pool_bytes(torch, pool) -> int:
+    """Bytes the caching allocator holds in the graph memory pool
+    ``pool`` (0 before the first capture)."""
+    if pool is None:
+        return 0
+    return sum(seg['total_size'] for seg in torch.cuda.memory_snapshot()
+               if tuple(seg.get('segment_pool_id', ())) == tuple(pool))
+
+
+def _profile_ticks(torch, fn, n: int) -> tuple:
+    """``(kernels, device ms)`` a call of ``fn`` as ``torch.profiler``
+    traces the card over ``n`` calls: the kernels (copies and memsets
+    not counted) and the device time of everything it ran; ``(None,
+    None)`` when the trace holds no device event."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    dev = [e for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not dev:
+        return None, None
+    kernels = [e for e in dev if not e.name.startswith(('Memcpy', 'Memset'))]
+    return (len(kernels) / n,
+            sum(e.time_range.elapsed_us() for e in dev) / 1e3 / n)
+
+
+def _host_ms(torch, fn, n: int) -> float:
+    """Host time of one call of ``fn`` (its launches queued, not run),
+    the mean over ``n`` calls back to back."""
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(n):
+        fn()
+    ms = (time.perf_counter() - t) * 1e3 / n
+    torch.cuda.synchronize()
+    return ms
+
+
+class _Eager:
+    """Inside the block, ``ing``'s ticks on ``bk`` run the eager chain
+    the graph was captured from (the tree before graphs), for
+    comparison only."""
+
+    def __init__(self, ing, bk):
+        self.ing, self.bk = ing, bk
+
+    def __enter__(self):
+        self.graph, self.bk.graph = self.bk.graph, None
+        self.ing._graphed = lambda: False
+
+    def __exit__(self, *exc):
+        self.bk.graph = self.graph
+        del self.ing._graphed
+
+
+def _graph_cell(PAR, W, K2, FleetIngest, mesh, what: str, mode: str, rows,
+                frames: int, n: int, smi: str) -> dict:
+    """One phase-16 cell: warm the bucket (capture included), then hold
+    a replayed tick to the eager chain's on the same staged inputs, and
+    time both."""
+    import torch
+
+    from zkstream_tpu_torch.ops import tick_graph as TG
+
+    kw = dict(body_mode=mode, max_frames=frames, warm='block',
+              bypass_bytes=0)
+    ing = (PAR.MeshFleetIngest(mesh=mesh, **kw) if mesh is not None
+           else FleetIngest(device='cuda', **kw))
+    key = ing._bucket(len(rows), max(len(r) for r in rows))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    bk = ing._compile(key)
+    compile_ms = (time.perf_counter() - t0) * 1e3
+    pool = _pool_bytes(torch, ing._graph_pool)
+    shards = 1 if mesh is None else mesh.shape['dp']
+    mod = K2 if mode == 'device' else W
+    if bk.graph.launches != {mod.__name__: shards}:
+        raise AssertionError('phase 16 %s: the graph holds %s'
+                             % (what, bk.graph.launches))
+    active = [(None, bytearray(r)) for r in rows]
+    W.launches = K2.launches = 0
+    got = [np.array(x) for x in ing._run_step(bk, active) if x is not None]
+    if (W.launches, K2.launches) != ((0, shards) if mode == 'device'
+                                     else (shards, 0)):
+        raise AssertionError('phase 16 %s: one replay counted K1 %d, K2 %d'
+                             % (what, W.launches, K2.launches))
+    with _Eager(ing, bk), TG.recording():
+        want = [np.array(x) for x in ing._run_step(bk, active)
+                if x is not None]
+    if len(got) != len(want) or not all(
+            np.array_equal(a, b) for a, b in zip(want, got)):
+        raise AssertionError('phase 16 %s: the replayed tick differs from '
+                             'the eager chain' % (what,))
+    step = ing._step_fn(mode == 'device')
+
+    def replay():
+        bk.graph.replay()
+
+    def eager():
+        step(*bk.inputs())
+
+    out = {'shape': list(key), 'compile_ms': compile_ms,
+           'warm_ms': bk.graph.warm_ms, 'capture_ms': bk.graph.capture_ms,
+           'pool_bytes': pool,
+           'packed': [list(a.shape) for a in got]}
+    with TG.recording():
+        for name, fn in (('eager', eager), ('replay', replay)):
+            fn()
+            kernels, dev_ms = _profile_ticks(torch, fn, min(n, 3))
+            out[name] = {'kernels': kernels, 'device_ms': dev_ms,
+                         'tick_ms': _time_ms(torch, fn, n),
+                         'host_ms': _host_ms(torch, fn, n)}
+        half = {}
+        for name in ('eager', 'replay'):
+            ctx = _Eager(ing, bk) if name == 'eager' else None
+            if ctx is not None:
+                ctx.__enter__()
+            try:
+                ing._run_step(bk, active)
+                t = time.perf_counter()
+                for _ in range(n):
+                    ing._run_step(bk, active)
+                half[name] = (time.perf_counter() - t) * 1e3 / n
+            finally:
+                if ctx is not None:
+                    ctx.__exit__()
+        out['eager']['device_half_ms'] = half['eager']
+        out['replay']['device_half_ms'] = half['replay']
+    del ing, bk
+    e, r = out['eager'], out['replay']
+    _log('# phase 16 %s on %s: bucket %s; replayed tick == eager chain bit '
+         'for bit (packed %s); warm %.3f ms (eager warm-up run %.3f, '
+         'capture %.3f), graph pool %d bytes after it; kernels a tick '
+         '(torch.profiler) eager %s, replay %s; device ms a tick eager %s, '
+         'replay %s; tick on the card (CUDA events, %d back to back) eager '
+         '%.4f ms, replay %.4f ms; host ms a tick eager %.4f, replay %.4f; '
+         'device half (stage, copies, tick, readbacks, synchronize) eager '
+         '%.4f ms, replay %.4f ms'
+         % (what, smi, out['shape'], out['packed'], compile_ms,
+            out['warm_ms'], out['capture_ms'], pool, e['kernels'],
+            r['kernels'],
+            'not measured' if e['device_ms'] is None else '%.4f' % e['device_ms'],
+            'not measured' if r['device_ms'] is None else '%.4f' % r['device_ms'],
+            n, e['tick_ms'], r['tick_ms'], e['host_ms'], r['host_ms'],
+            e['device_half_ms'], r['device_half_ms']))
+    return out
+
+
+def _graph_phase(PAR, W, K2, FleetIngest, dev, smi: str, streams,
+                 first_frames: int) -> dict:
+    """Phase 16: each body mode's tick as one CUDA graph replay against
+    the eager chain it was captured from, at a 32-client tick and at the
+    2048 x 16384 bucket, and at the bucket on four dp shards of the
+    card."""
+    t0 = time.perf_counter()
+    mesh4 = PAR.make_mesh(dp=4, devices=[dev] * 4)
+    shapes = {'32 clients': ([s[:first_frames] for s in streams[:32]], 16),
+              'bucket': (streams, FRAMES)}
+    cells = {}
+    for mesh_name, mesh, names in (
+            ('FleetIngest', None, ('32 clients', 'bucket')),
+            ('MeshFleetIngest dp=4', mesh4, ('bucket',))):
+        for shape in names:
+            rows, frames = shapes[shape]
+            for mode in ('host', 'device'):
+                what = '%s, %s bodies, %s' % (mesh_name, mode, shape)
+                cells[what] = _graph_cell(PAR, W, K2, FleetIngest, mesh,
+                                          what, mode, rows, frames,
+                                          GRAPH_TICKS[shape], smi)
+    _log('# phase 16 on %s: %d cells, %.2f s' % (smi, len(cells),
+                                                time.perf_counter() - t0))
+    return cells
+
+
 # -- phase 9: the sequence-parallel scan and its chunk walk -------------
 
 SEQ_TILES = (1 << 12, 1 << 13, 1 << 14, 1 << 15, 1 << 16)  # the sweep
@@ -2819,6 +3028,10 @@ def main() -> int:
     finally:
         gc.unfreeze()
 
+    # -- 16. the tick program as a CUDA graph --
+    graphs16 = _graph_phase(PAR, W, K2, FleetIngest, dev, smi, streams,
+                            slots[2]['off'])
+
     # -- report --
     seq_t = seq9['tiles'][SW.DEFAULT_TILE]
     kernels = [{
@@ -2839,6 +3052,8 @@ def main() -> int:
         'bucket': {'shape': [Bp, Lb], 'ms': k1b_ms, 'device_ms': k1b_dev,
                    'bound_ms': k1b_bound_ms,
                    'bound_share': k1b_bound_ms / k1b_ms},
+        'tick_graph': {k: v for k, v in graphs16.items()
+                       if 'host bodies' in k},
         'launches_by_path': {
             'phase 4 FleetIngest, C codecs': launches,
             'phase 8 sharded_wire_step dp=4': sharded['dp=4 on one card'][1],
@@ -2876,6 +3091,8 @@ def main() -> int:
         'bucket': {'shape': [Bp, Lb], 'ms': k2b_ms, 'device_ms': k2b_dev,
                    'bound_ms': k2b_bound_ms,
                    'bound_share': k2b_bound_ms / k2b_ms},
+        'tick_graph': {k: v for k, v in graphs16.items()
+                       if 'device bodies' in k},
         'launches_by_path': {
             'phase 7 FleetIngest device bodies': k2_launches,
             'phase 10 MeshFleetIngest device bodies':

@@ -282,11 +282,16 @@ def _keys(x, depth=2):
 
 def _batched(pkg):
     """The batched transport backend ``pkg``'s probe picks (after its C
-    extension is built), or 'asyncio'."""
+    extension is built), or 'asyncio'.  The transport and ingress probes
+    cache their answers: a server or client made earlier in this
+    process, while the extension was still building, cached "no uring",
+    so both probe again here (the cell's server resolves its ingress
+    backend from the ingress probe)."""
     import importlib
 
     importlib.import_module(pkg + '.utils.native').ensure_ext()
-    p = importlib.import_module(pkg + '.io.transport').probe()
+    importlib.import_module(pkg + '.io.ingress').probe(refresh=True)
+    p = importlib.import_module(pkg + '.io.transport').probe(refresh=True)
     return 'uring' if p.uring else ('mmsg' if p.mmsg else 'asyncio')
 
 

@@ -175,8 +175,8 @@ def test_full_decode_on_card_equals_cpu(cuda_device, name):
 
 @pytest.mark.cuda
 def test_device_body_tick_launches_k2_only(cuda_device):
-    """A CUDA device-body tick is one K2 launch (no K1) and packs what
-    the same tick packs on the CPU."""
+    """A CUDA device-body tick, one replay of the bucket's graph, is one
+    K2 launch (no K1) and packs what the same tick packs on the CPU."""
     from zkstream_tpu_torch.io.ingest import FleetIngest
 
     buf, _lens, _slots, _maps = corpus.fleet(B=12, seed=2, frames=16)
@@ -187,9 +187,9 @@ def test_device_body_tick_launches_k2_only(cuda_device):
               max_path=32, max_children=6, max_name=12)
     key = (16, 4096)
     card = FleetIngest(device='cuda', **kw)
+    bk = card._compile(key)
     before = TK2.launches, TW.launches
-    got = card._run_step(card._warm_bucket(key),
-                         [(None, r) for r in rows])
+    got = card._run_step(bk, [(None, r) for r in rows])
     assert (TK2.launches, TW.launches) == (before[0] + 1, before[1])
     cpu = FleetIngest(device='cpu', **kw)
     want = cpu._run_step(cpu._warm_bucket(key), [(None, r) for r in rows])
@@ -413,9 +413,9 @@ def test_sharded_step_equals_unsharded_on_card(cuda_device, dp):
 @pytest.mark.cuda
 @pytest.mark.parametrize('body_mode', ['host', 'device'])
 def test_mesh_tick_equals_cpu_mesh_tick_on_card(cuda_device, body_mode):
-    """A mesh tick over 4 shards of one card launches its kernel (K1 or
-    K2) once a shard and packs what the same tick packs on 4 CPU
-    shards."""
+    """A mesh tick over 4 shards of one card, one replay of the graph of
+    the whole sharded step, launches its kernel (K1 or K2) once a shard
+    and packs what the same tick packs on 4 CPU shards."""
     from zkstream_tpu_torch.parallel import MeshFleetIngest, make_mesh
 
     buf, _lens, _slots, _maps = corpus.fleet(B=12, seed=2, frames=16)
@@ -424,8 +424,10 @@ def test_mesh_tick_equals_cpu_mesh_tick_on_card(cuda_device, body_mode):
               max_children=6, max_name=12)
     key = (16, 4096)
     card = MeshFleetIngest(mesh=make_mesh(devices=[cuda_device] * 4), **kw)
+    bk = card._compile(key)
+    assert bk.graph is not None
     before = TK2.launches, TW.launches
-    got = card._run_step(card._warm_bucket(key), rows)
+    got = card._run_step(bk, rows)
     k2, k1 = (4, 0) if body_mode == 'device' else (0, 4)
     assert (TK2.launches, TW.launches) == (before[0] + k2, before[1] + k1)
     cpu = MeshFleetIngest(mesh=make_mesh(devices=['cpu'] * 4), **kw)
@@ -433,6 +435,130 @@ def test_mesh_tick_equals_cpu_mesh_tick_on_card(cuda_device, body_mode):
     for a, b in zip(want, got):
         if a is not None:
             np.testing.assert_array_equal(a, b)
+
+
+def _graph_ingest(kind, device):
+    """An ingest whose ticks are graphed: ``host``/``device`` bodies,
+    or ``mesh-host``/``mesh-device`` on four shards of the one card."""
+    from zkstream_tpu_torch.io.ingest import FleetIngest
+    from zkstream_tpu_torch.parallel import MeshFleetIngest, make_mesh
+
+    mode = kind.split('-')[-1]
+    kw = dict(body_mode=mode, max_frames=16, max_data=64, max_path=32,
+              max_children=6, max_name=12)
+    if kind.startswith('mesh'):
+        return MeshFleetIngest(mesh=make_mesh(devices=[device] * 4), **kw)
+    return FleetIngest(device=device, **kw)
+
+
+def _eager_view(ing, out):
+    """The eager chain's output as ``_run_step`` reads it back: a mesh
+    step's per-shard ints (and bytes, with device bodies), or a
+    ``FleetIngest`` step's ``(ints, bytes-or-None)``."""
+    if hasattr(ing, 'mesh'):
+        ints, byts = out if ing.body_mode == 'device' else (out, None)
+        return ing._local_view(ints), (None if byts is None
+                                       else ing._local_view(byts))
+    ints, byts = out
+    return ints.cpu().numpy(), None if byts is None else byts.cpu().numpy()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('kind', ['host', 'device', 'mesh-host',
+                                  'mesh-device'])
+def test_replay_equals_eager_chain_on_card(cuda_device, kind):
+    """A bucket's graph replayed for a long tick and then a shorter one
+    (stale bytes left in the staging rows) packs what the eager chain
+    packs on the same staged inputs, counts its kernel's launches per
+    replay (once a shard) and none at capture, whose warm-up run is
+    counted apart."""
+    from zkstream_tpu_torch.ops import tick_graph as TG
+
+    buf, _lens, _slots, _maps = corpus.fleet(B=12, seed=2, frames=16)
+    long_rows = [bytearray(r.tobytes()) for r in buf]
+    gbuf, glens = corpus.getdata_fleet(4, 4, 1024, 64)
+    short_rows = [bytearray(r[:max(n - 30, 0)].tobytes())
+                  for r, n in zip(gbuf, glens)]
+    ing = _graph_ingest(kind, cuda_device)
+    mod = TK2 if ing.body_mode == 'device' else TW
+    per_tick = 4 if kind.startswith('mesh') else 1
+    before = TW.launches, TK2.launches
+    bk = ing._compile((16, 4096))
+    assert (TW.launches, TK2.launches) == before
+    assert bk.graph.launches == {mod.__name__: per_tick}
+    assert bk.graph.warm_launches == {mod.__name__: per_tick}
+    for rows in (long_rows, short_rows):
+        n0 = mod.launches
+        got = [None if x is None else np.array(x)
+               for x in ing._run_step(bk, [(None, r) for r in rows])]
+        assert mod.launches == n0 + per_tick
+        with TG.recording():
+            want = _eager_view(ing, ing._step_fn(
+                ing.body_mode == 'device')(*bk.inputs()))
+        for w, g in zip(want, got):
+            if w is not None:
+                np.testing.assert_array_equal(w, g)
+
+
+@pytest.mark.cuda
+def test_tick_replays_while_another_bucket_captures(cuda_device):
+    """The warm thread captures one bucket (held mid-capture) while the
+    loop thread replays another's graph: those ticks equal the CPU's,
+    count one K1 launch each, and the held bucket then captures and
+    replays as well."""
+    import asyncio
+    import threading
+
+    from zkstream_tpu_torch.io.ingest import FleetIngest
+
+    buf, _lens, _slots, _maps = corpus.fleet(B=12, seed=3, frames=16)
+    active = [(None, bytearray(r.tobytes())) for r in buf]
+    maxlen = max(len(b) for _c, b in active)
+    held, go = threading.Event(), threading.Event()
+
+    class HeldCapture(FleetIngest):
+        def _step(self, buf, lens):
+            out = super()._step(buf, lens)
+            if buf.shape[1] == key_b[1] and \
+                    torch.cuda.is_current_stream_capturing():
+                held.set()
+                assert go.wait(120)
+            return out
+
+    ing = HeldCapture(device='cuda', body_mode='host', max_frames=16,
+                      bypass_bytes=0)
+    key_a = ing._bucket(len(active), maxlen)
+    key_b = (key_a[0], 2 * key_a[1])
+    cpu = FleetIngest(device='cpu', body_mode='host', max_frames=16)
+    want = cpu._run_step(cpu._warm_bucket(key_a), active)[0]
+
+    async def run():
+        await ing.prewarm(len(active), maxlen)
+        ev = ing._start_warm(key_b)
+        for _ in range(12000):
+            if held.is_set():
+                break
+            await asyncio.sleep(0.01)
+        assert held.is_set()
+        n0 = TW.launches
+        ticks = [np.array(ing._run_step(ing._exec[key_a], active)[0])
+                 for _ in range(3)]
+        assert TW.launches == n0 + 3 and not ev.is_set()
+        go.set()
+        await ev.wait()
+        bk_b = ing._exec[key_b]
+        assert bk_b.graph is not None
+        ticks.append(np.array(ing._run_step(bk_b, active)[0]))
+        assert TW.launches == n0 + 4
+        return ticks
+
+    try:
+        ticks = asyncio.run(run())
+    finally:
+        go.set()
+        ing.close()
+    for t in ticks:
+        np.testing.assert_array_equal(want, t)
 
 
 async def _live_fleet(ingest, n: int) -> list:
@@ -598,3 +724,56 @@ def test_ensemble_leader_kill_through_kernel_on_card(cuda_device):
     assert out['got'] == [b'v1'] * 24
     assert ing.ticks > 0 and ing.frames_routed > 0
     assert (TW.launches - k1, TK2.launches - k2) == (ing.ticks, 0)
+
+
+@pytest.mark.cuda
+def test_failed_capture_raises_on_its_tick(cuda_device):
+    """A bucket whose capture fails (a tensor made from a host list in
+    the step: a pageable copy, which capture refuses) is a warm failure:
+    the tick that needs it raises, no packet is delivered, no launch is
+    counted and nothing runs the eager chain in the graph's place.  (Last
+    in the file: the capture error is left behind on its stream.)"""
+    import asyncio
+
+    from zkstream_tpu_torch.io.ingest import FleetIngest
+    from zkstream_tpu_torch.protocol.framing import PacketCodec
+
+    class Unsafe(FleetIngest):
+        def _step(self, buf, lens):
+            ints, byts = super()._step(buf, lens)
+            return ints + torch.tensor([0], dtype=torch.int32,
+                                       device=buf.device), byts
+
+    class Conn:
+        def __init__(self, xid_map):
+            self.codec = PacketCodec(use_native=False)
+            self.codec.handshaking = False
+            self.codec.xid_map.update(xid_map)
+            self.got = []
+
+        def is_in_state(self, state):
+            return state == 'connected'
+
+        def emit(self, _event, pkts, err):
+            self.got.append((pkts, err))
+
+    buf, _lens, _slots, maps = corpus.fleet(B=4, seed=7, frames=16)
+    ing = Unsafe(device='cuda', body_mode='host', max_frames=16,
+                 bypass_bytes=0, warm='block')
+    conns = [Conn(m) for m in maps]
+
+    async def tick():
+        for c, row in zip(conns, buf):
+            ing.register(c)
+            ing.feed(c, row.tobytes())
+        n0 = TW.launches
+        with pytest.raises(RuntimeError, match='failed to warm'):
+            ing._tick_impl()
+        assert TW.launches == n0
+        with pytest.raises(RuntimeError, match='failed to warm'):
+            ing._tick_impl()
+
+    asyncio.run(tick())
+    assert all(c.got == [] for c in conns) and ing.ticks == 0
+    assert len(ing._exec) == 1 and all(
+        isinstance(v, BaseException) for v in ing._exec.values())

@@ -36,11 +36,17 @@ hooks, routing and packet assembly) is the reference's.  What differs:
 - ``device=`` (default ``'cuda'``) names where ticks run; with no card
   the constructor raises.  There is no placement probe that moves
   ticks to the host CPU.
-- A shape bucket's warm-up builds the kernel library (first use) and
-  allocates the bucket's pinned staging tensor, device input tensors
-  and pinned readback tensors — the counterpart of the reference's
-  per-bucket XLA compile.  A warm failure raises on the next tick; it
-  never latches the bucket onto the scalar drain.
+- A shape bucket's warm-up (:meth:`FleetIngest._compile`, the
+  counterpart of the reference's per-bucket XLA compile) builds the
+  kernel library (first use), allocates the bucket's pinned staging
+  tensor, device input tensors and pinned readback tensors, and on a
+  card captures the whole tick program (:meth:`FleetIngest._step_fn`)
+  on those inputs into a CUDA graph (``ops/tick_graph.py``): a device
+  tick is then two pinned copies in, one graph replay and the
+  readbacks, not a chain of ~40 (host bodies) or ~3,500 (device bodies)
+  launches.  A warm failure, a failed capture included, raises on the
+  next tick; it never latches the bucket onto the scalar drain, and no
+  tick on a card runs the eager chain in place of the graph.
 
 torch is imported where a tick or a bucket needs it, never at module
 import: the client and server stacks import this module, and a process
@@ -110,7 +116,12 @@ class _Bucket:
     """The tensors of one ``(Bp, L)`` shape bucket, reused every tick:
     a host staging batch (pinned for a CUDA device), the device inputs
     and host readbacks of the packed result: ``n_ints`` int32 columns
-    and, in device-body mode, ``[F, n_bytes]`` uint8 planes per row."""
+    and, in device-body mode, ``[F, n_bytes]`` uint8 planes per row.
+    ``graph``: the tick program captured on the device inputs (a
+    :class:`~zkstream_tpu_torch.ops.tick_graph.TickGraph`, set by
+    :meth:`FleetIngest._compile` on a card), else None."""
+
+    graph = None
 
     def __init__(self, Bp: int, L: int, F: int, device: torch.device,
                  n_ints: int, n_bytes: int = 0):
@@ -137,6 +148,10 @@ class _Bucket:
         else:
             self.dev_buf, self.dev_lens = self.stage_buf, self.stage_lens
             self.readback = self.readback_bytes = None
+
+    def inputs(self) -> tuple:
+        """The tick program's arguments: the device batch and lengths."""
+        return self.dev_buf, self.dev_lens
 
 
 class FleetIngest:
@@ -255,6 +270,9 @@ class FleetIngest:
         self.body_fallbacks = 0
         #: (Bp, L) -> _Bucket, or the exception its warm-up raised
         self._exec: dict = {}
+        #: the side stream every bucket's graph is captured on and the
+        #: memory pool the graphs share (made at the first capture)
+        self._graph_stream = self._graph_pool = None
         self._warm_events: dict = {}
         self._warm_queue: queue.Queue | None = None
         #: Optional seeded fault injector: tick-time faults in the
@@ -351,6 +369,30 @@ class FleetIngest:
         return _Bucket(Bp, L, self.max_frames, self.device,
                        *self._packed_widths())
 
+    def _graphed(self) -> bool:
+        """Does a tick run as a captured CUDA graph?  On a card, yes."""
+        return self.device.type == 'cuda'
+
+    def _compile(self, key: tuple):
+        """Warm one shape bucket: allocate it (:meth:`_warm_bucket`) and,
+        on a card, capture its tick program into a CUDA graph — the port
+        of the reference's ``_compile`` (``fn.lower(batch,
+        lens).compile()``).  Runs on the warm thread (or inline under
+        ``warm='block'``)."""
+        import torch
+
+        from ..ops.tick_graph import TickGraph
+
+        bk = self._warm_bucket(key)
+        if self._graphed():
+            if self._graph_pool is None:
+                self._graph_stream = torch.cuda.Stream(self.device)
+                self._graph_pool = torch.cuda.graph_pool_handle()
+            step = self._step_fn(self.body_mode == 'device')
+            bk.graph = TickGraph(lambda: step(*bk.inputs()), self.device,
+                                 self._graph_stream, self._graph_pool)
+        return bk
+
     def _load_kernel(self) -> None:
         """Build and bind the tick's kernel (K2 in device-body mode, K1
         otherwise)."""
@@ -371,7 +413,7 @@ class FleetIngest:
         """Warm ``key``; a failure is returned (and raised by the tick
         that needs the bucket), never latched onto the scalar drain."""
         try:
-            return self._warm_bucket(key)
+            return self._compile(key)
         except Exception as e:
             self.log.error('tick bucket %r failed to warm: %s', key, e)
             return e
@@ -519,15 +561,24 @@ class FleetIngest:
                  'stat': lambda e: len(StatPlanes._fields)}
         return sum(width[e[0]](e) for e in self._body_schema())
 
+    def _step_fn(self, device_bodies: bool):
+        """The tick program, the counterpart of the reference's
+        ``_step_fn``: ``fn(*bucket.inputs())`` decodes a bucket's batch
+        into packed arrays.  :meth:`_compile` captures it into a CUDA
+        graph on a card; the CPU runs it eagerly.  (``device_bodies`` is
+        this ingest's body mode; the mesh ingest's program differs.)"""
+        return self._step
+
     def _step(self, buf, lens):
         """The tick computation on ``buf``/``lens`` (device tensors):
         decode and pack into ``(ints [Bp, 3 + K*F], bytes [Bp, F, W])``,
         ``bytes`` None in host-body mode."""
-        return self._step_st(buf, lens)[1:]
+        return self._trace_step(buf, lens)[1:]
 
-    def _step_st(self, buf, lens):
-        """:meth:`_step` with the tick's ``WireStats`` first: ``(st,
-        ints, bytes)`` (the mesh ingest reduces ``st`` fleet-wide)."""
+    def _trace_step(self, buf, lens):
+        """The reference's ``_trace_step``: :meth:`_step` with the
+        tick's ``WireStats`` first, ``(st, ints, bytes)`` (the mesh
+        ingest reduces ``st`` fleet-wide)."""
         from ..ops.pipeline import wire_full_decode, wire_pipeline_step_auto
         from ..ops.replies import parse_list_bodies, parse_reply_bodies
 
@@ -815,10 +866,23 @@ class FleetIngest:
             lens[i] = n
         lens[len(active):] = 0
 
+    def _launch(self, bk):
+        """Run the tick program on the bucket's inputs: one replay of
+        its CUDA graph where ticks are graphed (which counts the kernel
+        launches it holds), the eager chain elsewhere (the CPU).  A
+        graphed bucket without a graph raises: nothing runs the eager
+        chain on a card in place of a graph."""
+        if bk.graph is not None:
+            return bk.graph.replay()
+        if self._graphed():
+            raise RuntimeError('tick bucket has no captured tick program')
+        return self._step_fn(self.body_mode == 'device')(*bk.inputs())
+
     def _run_step(self, bk: _Bucket, active):
-        """Stage the active streams, run the tick (:meth:`_step`) and
+        """Stage the active streams, run the tick (:meth:`_launch`) and
         read back the packed ``(ints, bytes-or-None)`` as numpy: two
-        pinned readbacks and one synchronize on a CUDA device."""
+        pinned copies in, one graph replay, two pinned readbacks and one
+        synchronize on a CUDA device."""
         import torch
 
         B = len(active)
@@ -827,7 +891,7 @@ class FleetIngest:
         if cuda:
             bk.dev_buf[:B].copy_(bk.stage_buf[:B], non_blocking=True)
             bk.dev_lens.copy_(bk.stage_lens, non_blocking=True)
-        ints, byts = self._step(bk.dev_buf, bk.dev_lens)
+        ints, byts = self._launch(bk)
         if not cuda:
             return ints.numpy(), None if byts is None else byts.numpy()
         bk.readback.copy_(ints, non_blocking=True)

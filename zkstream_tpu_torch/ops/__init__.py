@@ -17,7 +17,9 @@
 - :mod:`encode` — the inverse direction: field planes -> framed reply
   streams;
 - :mod:`pipeline` — the tick decode over a [B, L] batch, with or
-  without the GET_DATA bodies.
+  without the GET_DATA bodies;
+- :mod:`tick_graph` — a tick program captured once into a CUDA graph
+  and replayed each tick, with the kernels' launch counts kept true.
 """
 
 from .bodies import slice_frame_bodies

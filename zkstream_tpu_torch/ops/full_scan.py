@@ -44,6 +44,7 @@ import torch
 from ..protocol.consts import MAX_PACKET
 from . import wire_scan
 from .bytesops import be_i32_at
+from .tick_graph import count_launch
 from .wire_scan import _MAX_ROW
 
 #: Where the TPU kernel this module replaces lives.
@@ -63,7 +64,8 @@ MAX_HDR_FRAMES = 64
 SMEM_LIMIT = 232448
 
 #: Launches of the CUDA kernel since the last reset (the plain version
-#: never counts).
+#: never counts; a CUDA graph's replay counts the launches it recorded,
+#: its capture none: ops/tick_graph.py).
 launches = 0
 
 #: K2's [B, F] planes, in the order of its [7, B, F] output: K1's, then
@@ -195,7 +197,6 @@ def full_scan(buf, lens, max_frames: int, max_data: int) -> dict:
     :func:`full_scan_plain` returns.  A CPU tensor runs the plain
     version; a CUDA tensor launches K2 on the current stream.
     """
-    global launches
     if max_data % 4:
         raise ValueError('max_data must be a multiple of 4, got %d'
                          % (max_data,))
@@ -238,7 +239,7 @@ def full_scan(buf, lens, max_frames: int, max_data: int) -> dict:
             out['resid'].data_ptr(), out['bad'].data_ptr(), stream)
     if rc != 0:
         raise RuntimeError('K2 launch failed: cudaError %d' % (rc,))
-    launches += 1
+    count_launch(__name__)
     return out
 
 

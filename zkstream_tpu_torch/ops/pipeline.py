@@ -163,9 +163,10 @@ def wire_full_decode(buf, lens, max_frames: int = 32,
     data_len = torch.where(data_ok, draw, 0)
     n_ok = torch.where(data_ok, nb, 0)
     # BE words -> bytes, masked to the field extent and, as
-    # slice_var_bytes masks them, to bytes inside the row
-    shifts = torch.tensor([24, 16, 8, 0], dtype=torch.int32,
-                          device=buf.device)
+    # slice_var_bytes masks them, to bytes inside the row.  The shifts
+    # 24, 16, 8, 0 are made on the device: a host list copied in would
+    # be a pageable copy, which a CUDA graph capture refuses
+    shifts = 24 - 8 * torch.arange(4, dtype=torch.int32, device=buf.device)
     B, F = draw.shape
     byts = ((r['data_words'][..., None] >> shifts) & 0xFF).reshape(
         B, F, max_data)

@@ -52,6 +52,7 @@ import torch
 
 from .frame_scan import frame_cursor_scan
 from .headers import parse_reply_headers
+from .tick_graph import count_launch
 
 #: Where the TPU kernel this module replaces lives.
 REPLACES = 'zkstream_tpu/ops/pallas_scan.py:99'
@@ -61,7 +62,8 @@ SOURCE = _PKG / 'csrc' / 'wire_scan.cu'
 BUILD_DIR = _PKG.parent / 'build'
 
 #: Launches of the CUDA kernel since the last reset (the plain version
-#: never counts).
+#: never counts; a CUDA graph's replay counts the launches it recorded,
+#: its capture none: ops/tick_graph.py).
 launches = 0
 
 _lib = None
@@ -177,7 +179,6 @@ def wire_scan(buf, lens, max_frames: int) -> dict:
     :func:`wire_scan_plain` returns.  A CPU tensor runs the plain
     version; a CUDA tensor launches K1 on the current stream.
     """
-    global launches
     _check(buf, lens, max_frames)
     dev = buf.device
     if dev.type == 'cpu':
@@ -206,7 +207,7 @@ def wire_scan(buf, lens, max_frames: int) -> dict:
             out['bad'].data_ptr(), stream)
     if rc != 0:
         raise RuntimeError('K1 launch failed: cudaError %d' % (rc,))
-    launches += 1
+    count_launch(__name__)
     return out
 
 

@@ -18,9 +18,15 @@ session statistics on the way:
   ints: no extra readback.
 
 Several shards may share one card (``make_mesh(devices=[cuda:0] * 4)``):
-each still runs its own kernel launch on its rows.  The port of
-``zkstream_tpu.parallel.fleet``; the tests drive it on 8 CPU shards with
-live in-process connections (tests/test_torch_mesh_ingest.py).
+each still runs its own kernel launch on its rows.  On one card with no
+process group the whole sharded step — every shard's decode, the fleet
+globals and their appending — is captured per bucket into one CUDA graph
+and replayed each tick, the counterpart of the reference's one
+``jax.jit(shard_map(...))`` program.  A mesh over several cards and
+:class:`MultihostFleetIngest` (an NCCL ``all_reduce`` inside the step)
+run the step eagerly.  The port of ``zkstream_tpu.parallel.fleet``; the
+tests drive it on 8 CPU shards with live in-process connections
+(tests/test_torch_mesh_ingest.py).
 """
 
 from __future__ import annotations
@@ -41,7 +47,10 @@ class _MeshBucket:
     """The tensors of one ``(Bp, L)`` shape bucket of a mesh ingest: a
     host staging batch (pinned when the mesh has a card), each dp
     shard's input rows on its device (views of the staging rows on a
-    CPU shard), and the host readbacks of the packed result."""
+    CPU shard), and the host readbacks of the packed result; ``graph``
+    as :class:`~zkstream_tpu_torch.io.ingest._Bucket`'s."""
+
+    graph = None
 
     def __init__(self, Bp: int, L: int, F: int, mesh, n_ints: int,
                  n_bytes: int):
@@ -69,9 +78,9 @@ class _MeshBucket:
             torch.empty((Bp, F, n_bytes), dtype=torch.uint8, pin_memory=pin)
             if n_bytes else None)
 
-    def place(self, B: int):
+    def place(self, B: int) -> None:
         """Copy the first ``B`` staged rows and every length onto the
-        shards; returns the per-shard ``(bufs, lens)``."""
+        shards."""
         for s, (db, dl) in enumerate(self.shards):
             if db.device.type == 'cpu':
                 continue
@@ -80,6 +89,9 @@ class _MeshBucket:
             if k:
                 db[:k].copy_(self.stage_buf[lo:lo + k], non_blocking=True)
             dl.copy_(self.stage_lens[lo:lo + self.rows], non_blocking=True)
+
+    def inputs(self) -> tuple:
+        """The sharded tick's arguments: the per-shard ``(bufs, lens)``."""
         return [b for b, _ in self.shards], [n for _, n in self.shards]
 
 
@@ -137,6 +149,13 @@ class MeshFleetIngest(FleetIngest):
         return _MeshBucket(Bp, L, self.max_frames, self.mesh,
                            n_ints + _N_GLOBALS, n_bytes)
 
+    def _graphed(self) -> bool:
+        """Ticks are graphed on one card with no process group: every
+        shard on the same CUDA device."""
+        return (self.mesh.group is None
+                and len(set(self.mesh.dp_devices)) == 1
+                and self.mesh.first.type == 'cuda')
+
     def _step_fn(self, device_bodies: bool):
         """The sharded tick: ``fn(bufs, lens)`` over per-shard inputs
         returns the per-shard packed ints, the seven fleet globals
@@ -148,7 +167,7 @@ class MeshFleetIngest(FleetIngest):
         from .sharded import fleet_globals
 
         def fn(bufs, lens):
-            outs = [self._step_st(b, n) for b, n in zip(bufs, lens)]
+            outs = [self._trace_step(b, n) for b, n in zip(bufs, lens)]
             g = fleet_globals(self.mesh, [st for st, _i, _b in outs])
             # replicated globals ride appended to each local row: the
             # packed readback stays one array, no extra transfer
@@ -178,12 +197,13 @@ class MeshFleetIngest(FleetIngest):
         return out.numpy()
 
     def _run_step(self, bk: _MeshBucket, active):
-        """Stage the active streams, run the sharded tick and read back
-        the packed ``(ints, bytes-or-None)`` as numpy."""
+        """Stage the active streams, run the sharded tick (one graph
+        replay on one card) and read back the packed ``(ints,
+        bytes-or-None)`` as numpy."""
         self._fill_staging(bk, active)
-        device_bodies = self.body_mode == 'device'
-        out = self._step_fn(device_bodies)(*bk.place(len(active)))
-        ints, byts = out if device_bodies else (out, None)
+        bk.place(len(active))
+        out = self._launch(bk)
+        ints, byts = out if self.body_mode == 'device' else (out, None)
         return (self._local_view(ints, bk.readback),
                 None if byts is None
                 else self._local_view(byts, bk.readback_bytes))

@@ -11,9 +11,11 @@ class for the run and restored after it (``io/ingest.py`` is not
 edited):
 
   staging   ``_fill_staging``: the streams copied into the bucket's rows
-  h2d       the rest of ``_run_step`` up to ``_step`` (the host-to-device
-            copies, closed by a synchronize on the card)
-  step      ``_step`` (K1 and the reductions; a synchronize closes it)
+  h2d       the rest of ``_run_step`` up to ``_launch`` (the
+            host-to-device copies, closed by a synchronize on the card)
+  step      ``_launch``: on the card one replay of the bucket's CUDA
+            graph (K1, the reductions and the pack), on the CPU the
+            eager step; a synchronize closes it
   readback  the rest of ``_run_step`` (the pinned readback and its wait)
   unpack    ``_unpack``
   route     ``_route_stream`` (of which ``_assemble_stream``, of which
@@ -70,7 +72,7 @@ def instrument(FleetIngest):
     the function that restores the class."""
     import torch
 
-    names = ('_tick', '_fill_staging', '_run_step', '_step', '_unpack',
+    names = ('_tick', '_fill_staging', '_run_step', '_launch', '_unpack',
              '_route_stream', '_assemble_stream', '_assemble_ext')
     saved = {n: FleetIngest.__dict__[n] for n in names}
     orig = {n: getattr(FleetIngest, n) for n in names}
@@ -109,10 +111,10 @@ def instrument(FleetIngest):
                       'shape': tuple(bk.stage_buf.shape)})
         return out
 
-    def _step(self, buf, lens):
+    def _launch(self, bk):
         sync(self)
         _cur['h2d'] = now()
-        out = orig['_step'](self, buf, lens)
+        out = orig['_launch'](self, bk)
         sync(self)
         _cur['step'] = now()
         return out
@@ -131,7 +133,7 @@ def instrument(FleetIngest):
     FleetIngest._tick = _tick
     FleetIngest._fill_staging = staticmethod(_fill_staging)
     FleetIngest._run_step = _run_step
-    FleetIngest._step = _step
+    FleetIngest._launch = _launch
     FleetIngest._unpack = timed('_unpack', 'unpack')
     FleetIngest._route_stream = timed('_route_stream', 'route')
     FleetIngest._assemble_stream = timed('_assemble_stream', 'assemble')

@@ -87,27 +87,34 @@ Phases (any failure exits non-zero; nothing is caught):
 8. The sharded tick decode (parallel/sharded.py): ``sharded_wire_step``
    on the corpus over ``make_mesh()`` (every card of the machine: dp=1
    here) and over ``make_mesh(dp=4, devices=[cuda:0] * 4)`` (four
-   logical shards on the one card).  Each must equal
+   logical shards on the one card), each one program (its first call
+   captures it and replays it once).  Each must equal
    ``wire_pipeline_step_auto`` on the whole batch field for field
    (tolerance 0), its globals the unsigned-64 max and sums of that
-   result, and K1's launches the shard count; ``sharded_wire_roundtrip``
-   at dp=4 must return every encoded frame.  Both sharded steps are
-   timed beside the single-device one.
+   result, and K1's launches a replay the shard count;
+   ``sharded_wire_roundtrip`` at dp=4 must return every encoded frame
+   with 4 K1 launches.  Both sharded steps are timed beside the
+   single-device one: a whole call (staging, replay, result copies) and
+   the replay alone.
 9. The sequence-parallel scan (parallel/seqscan.py) of one stream, the
    valid bytes of the corpus's first 1,024 rows concatenated (65,536
    frames), at sp=1 and sp=4 on the card: the mask must equal the plain
    scan (CPU shards), ``frame_starts_pointer_doubling`` and the plain
    cursor walk; every chunk's tile exit map (``seq_walk_prepare``) must
    equal ``tile_exits_plain`` and every chunk's walk (hop chain + mark)
-   ``walk_plain`` (tolerance 0); the launches (counted from 0 just
-   before each scan) must be one exit map a chunk and two walk launches
-   a shard a ring step.  The same on a stream whose one frame spans
+   ``walk_plain`` (tolerance 0), the kernels reading ``n`` on the card;
+   the launches (counted from 0 just before each scan: its capture and
+   one replay) must be one exit map a chunk and two walk launches a
+   shard a ring step.  The scan's one program then serves ``n`` = 0, a
+   frame's middle and the stream's end, each one replay with those
+   launches, each equal to pointer doubling.  The same on a stream whose one frame spans
    whole shards and on one with a bad prefix; each sp=4 chunk's map and
    walk again at 16-byte tiles (every frame spans tiles); and the map
    and walk on random small chunks and entries (before, inside and past
    the chunk, saturated).
-   Timed: the scan at sp=1 and sp=4 at 16, 32 and 64 KiB tiles (each
-   checked against the plain cursor walk), and one whole-stream exit map
+   Timed: the scan (a whole call and its replay) and its replay at sp=1
+   and sp=4 at 16, 32 and 64 KiB tiles (each checked against the plain
+   cursor walk), and one whole-stream exit map
    and walk at five tile sizes, warm and with the stream evicted from
    L2, beside their bounds: the walk's (4 bytes a frame's prefix read,
    the mask written) and this design's floor (the stream read).
@@ -197,13 +204,17 @@ Phases (any failure exits non-zero; nothing is caught):
    the scalar tick and full-decode baselines and the C-extension full
    decode, then ``bench_tensor`` — the tick (K1), the toy-width full
    decode (K2 + ``parse_reply_bodies``) and the deployed-width one (K2 +
-   both body parses), each timed as the min of 4 rounds — and its three
-   gates (every plane against the corpus's ground truth and the scalar
-   codec's packets, the list planes against the scalar walks).  K1's
-   launches, counted from 0 just before ``bench_tensor``, must equal
-   the tick candidate's calls (warm-up included), K2's the two
-   full-decode candidates' calls.  The bench's three metric lines are
-   printed.  Then its client-ops cells at ``CLIENT_SCALES`` (32 and 128
+   both body parses), each one program (a CUDA graph replay a call, the
+   corpus staged into its inputs once), each timed as the min of 4
+   rounds — and its three gates (every plane against the corpus's
+   ground truth and the scalar codec's packets, the list planes against
+   the scalar walks), on the outputs of a replay.  K1's launches,
+   counted from 0 just before ``bench_tensor``, must equal the tick
+   candidate's calls (warm-up replay included; the capture's eager
+   warm-up run is counted apart), K2's the two full-decode candidates'
+   calls.  The bench's three metric lines are printed, and each part of
+   a candidate timed alone, as wrapper calls and replayed as a program
+   of its own.  Then its client-ops cells at ``CLIENT_SCALES`` (32 and 128
    port ``Client``s against a port ``ZKServer``; Python codecs, C codecs
    and ``FleetIngest(device='cuda', body_mode='host', max_frames=8,
    bypass_bytes=0)``), one run each: K1's launches, from 0 before each
@@ -248,10 +259,23 @@ Phases (any failure exits non-zero; nothing is caught):
    the card (CUDA events around ticks back to back), the host's time a
    tick, and the device half (staging, copies, tick, readbacks,
    synchronize) on the host clock.
+17. The JAX package's other one-card ``jax.jit`` programs, each one
+   ``ops/tick_graph.Program`` captured once per key: ``sharded_wire_step``
+   (dp=1, and dp=4 on the card) and ``sharded_wire_roundtrip`` (dp=4) at
+   the corpus (16384 x 64), ``seq_parallel_frame_scan`` (sp=1 and 4) on
+   phase 9's stream, and the bench's ``tick``, ``full`` and
+   ``full-deployed``.  For each: the entry's warm (the eager warm-up run
+   and the capture) in ms and the graph pool's bytes; one replay, with
+   its launches counted (K1 a shard, K2 once, the scan's exit maps and
+   walks), equal to the eager chain on the same staged inputs bit for
+   bit; then, eager chain against replay, the kernels a call and their
+   device ms (``torch.profiler``), the time on the card (CUDA events
+   around calls back to back) and the host's time a call, and a whole
+   call (staging, replay, result copies) and its staging alone.
 
-Phase 11's ``MultihostFleetIngest`` (a process group), the sharded
-decode of phase 8, the sp scan and the bench's direct calls to the
-kernels' wrappers run eagerly.
+What still runs eagerly: a mesh over several cards, phase 11's
+``MultihostFleetIngest`` (a process group), and phases 2-6's direct
+calls of the kernels' wrappers, which time the kernels themselves.
 
 The last lines are the card's name and power limit, one JSON object of
 kernels, and ``{"ok": true, "device": {...}}``.  Without a CUDA device
@@ -1716,9 +1740,11 @@ def _bench_flagship(W, K2, bench, smi: str, device: str) -> dict:
             tick / scalar, full, full / scalar_full, deployed,
             deployed / scalar_full, deployed / ext_full, calls, k1, k2))
     if parts:
-        _log('# phase 14 where a flagship call goes on %s (ms, wrapper '
-             'calls back to back, after the counted run): %s'
-             % (smi, ', '.join('%s %.4f' % kv for kv in parts.items())))
+        _log('# phase 14 where a flagship call goes on %s (ms, after the '
+             'counted run: wrapper calls back to back / replays of the part '
+             'as its own program): %s'
+             % (smi, ', '.join('%s %.4f / %.4f' % (k, *v)
+                               for k, v in parts.items())))
     return {'k1': k1, 'k2': k2, 'calls': calls, 'lines': lines,
             'parts_ms': parts,
             'scalar': scalar, 'scalar_full': scalar_full,
@@ -1727,13 +1753,15 @@ def _bench_flagship(W, K2, bench, smi: str, device: str) -> dict:
 
 def _flagship_parts(W, K2, bench, buf, lens) -> dict:
     """The mean ms of each part of the bench's three candidates at its
-    corpus, each part timed alone (CUDA events around 20 wrapper calls
-    back to back): K1, the tick's torch reductions, K2 and its unpack at
-    both widths, and the two body parses."""
+    corpus, each part timed alone (CUDA events around 20 calls back to
+    back): K1, the tick's torch reductions, K2 and its unpack at both
+    widths, and the two body parses; ``{part: (wrapper calls, replays of
+    the part as its own program)}``."""
     import torch
 
     from zkstream_tpu_torch.ops import pipeline as P
     from zkstream_tpu_torch.ops import replies as R
+    from zkstream_tpu_torch.ops import tick_graph as TG
 
     db, dl = P.batch_to_device(buf, lens, 'cuda')
     F = bench.FRAMES
@@ -1767,9 +1795,12 @@ def _flagship_parts(W, K2, bench, buf, lens) -> dict:
                 max_scheme=bench.DEP_SCHEME, max_id=bench.DEP_ID),
     }
     out = {}
-    for name, fn in parts.items():
-        fn()
-        out[name] = _time_ms(torch, fn, 20)
+    with TG.recording():
+        for name, fn in parts.items():
+            fn()
+            run = TG.Program(fn, db.device).entry().run
+            out[name] = (_time_ms(torch, fn, 20), _time_ms(torch, run, 20))
+            del run
     return out
 
 
@@ -2210,6 +2241,150 @@ def _graph_phase(PAR, W, K2, FleetIngest, dev, smi: str, streams,
     return cells
 
 
+# -- phase 17: the JAX package's other one-card programs -----------------
+
+#: Calls timed in each phase-17 cell (the deployed-width full decode's
+#: eager chain takes ~66 ms a call).
+PROGRAM_CALLS = 10
+
+
+def _leaves(out) -> list:
+    from torch.utils._pytree import tree_flatten
+    return tree_flatten(out)[0]
+
+
+def _program_cell(prog, args, per: dict, what: str, smi: str) -> dict:
+    """One phase-17 cell: build ``prog``'s entry for ``args`` (its warm
+    and capture), stage ``args``, hold one replay, with ``per`` launches
+    counted, to the eager chain on the same staged inputs bit for bit;
+    then time the eager chain, the replay and a whole call (staging,
+    replay, result copies), and the staging alone."""
+    import torch
+
+    from zkstream_tpu_torch.ops import tick_graph as TG
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    e = prog.entry(*args)
+    compile_ms = (time.perf_counter() - t0) * 1e3
+    pool = _pool_bytes(torch, prog.pool)
+    if e.graph.launches != per:
+        raise AssertionError('phase 17 %s: the graph holds %s, not %s'
+                             % (what, e.graph.launches, per))
+    e.stage(*args)
+    before = {k: TG.launch_count(k) for k in per}
+    got = [t.clone() for t in _leaves(e.run())]
+    torch.cuda.synchronize()
+    counted = {k: TG.launch_count(k) - before[k] for k in per}
+    if counted != per:
+        raise AssertionError('phase 17 %s: one replay counted %s'
+                             % (what, counted))
+    with TG.recording():
+        want = _leaves(prog.fn(*e.inputs))
+    if len(want) != len(got) or not all(
+            torch.equal(a, b) for a, b in zip(want, got)):
+        raise AssertionError('phase 17 %s: the replay differs from the '
+                             'eager chain' % (what,))
+    out_bytes = sum(t.numel() * t.element_size() for t in got)
+    del want, got
+
+    def eager():
+        prog.fn(*e.inputs)
+
+    def call():
+        prog(*args)
+
+    def stage():
+        e.stage(*args)
+    n = PROGRAM_CALLS
+    out = {'compile_ms': compile_ms, 'warm_ms': e.graph.warm_ms,
+           'capture_ms': e.graph.capture_ms, 'pool_bytes': pool,
+           'output_bytes': out_bytes, 'launches': per}
+    with TG.recording():
+        for name, fn in (('eager', eager), ('replay', e.run)):
+            fn()
+            kernels, dev_ms = _profile_ticks(torch, fn, 3)
+            out[name] = {'kernels': kernels, 'device_ms': dev_ms,
+                         'ms': _time_ms(torch, fn, n),
+                         'host_ms': _host_ms(torch, fn, n)}
+        call()
+        out['call'] = {'ms': _time_ms(torch, call, n),
+                       'host_ms': _host_ms(torch, call, n)}
+        out['stage_ms'] = _time_ms(torch, stage, n)
+    e_, r = out['eager'], out['replay']
+    _log('# phase 17 %s on %s: replay == eager chain bit for bit, %s '
+         'launches a replay; warm %.3f ms (eager warm-up run %.3f, capture '
+         '%.3f), graph pool %d bytes; kernels a call (torch.profiler) eager '
+         '%s, replay %s; device ms a call eager %s, replay %s; on the card '
+         '(CUDA events, %d back to back) eager %.4f ms, replay %.4f ms, a '
+         'whole call %.4f ms (staging %.4f ms, result copies of %d bytes); '
+         'host ms a call eager %.4f, replay %.4f, whole call %.4f'
+         % (what, smi, per, compile_ms, out['warm_ms'], out['capture_ms'],
+            pool, e_['kernels'], r['kernels'],
+            'not measured' if e_['device_ms'] is None
+            else '%.4f' % e_['device_ms'],
+            'not measured' if r['device_ms'] is None
+            else '%.4f' % r['device_ms'],
+            n, e_['ms'], r['ms'], out['call']['ms'], out['stage_ms'],
+            out_bytes, e_['host_ms'], r['host_ms'], out['call']['host_ms']))
+    return out
+
+
+def _program_phase(PAR, bench, W, K2, SW, dev, smi: str, buf, lens,
+                   stream: bytes) -> dict:
+    """Phase 17: the sharded step (dp=1, and dp=4 on the card), the
+    roundtrip (dp=4), the sp scan (sp=1, 4) and the bench's three
+    candidates, each as one CUDA graph replay against the eager chain it
+    was captured from, at the bench corpus and phase 9's stream."""
+    import torch
+
+    from zkstream_tpu_torch.ops import pipeline as P
+    from zkstream_tpu_torch.ops import tick_graph as TG
+
+    t0 = time.perf_counter()
+    db, dl = P.batch_to_device(buf, lens, dev)
+    k1, k2 = {W.__name__: 1}, {K2.__name__: 1}
+    rng = np.random.RandomState(SEED + 17)
+    planes = [torch.from_numpy(rng.randint(lo, hi, (B_CORPUS, FRAMES))
+                               .astype(np.int32)).to(dev)
+              for lo, hi in ((1, 1 << 20), (0, 1 << 16), (0, 1 << 20),
+                             (0, 1), (16, 48))]
+    fns = bench.candidate_fns()
+
+    def cells():
+        for dp in (1, 4):
+            mesh = PAR.make_mesh(dp=dp, devices=[dev] * dp)
+            yield ('sharded_wire_step dp=%d' % dp,
+                   PAR.sharded_wire_step(mesh, max_frames=FRAMES).program,
+                   (db, dl), {W.__name__: dp})
+        yield ('sharded_wire_roundtrip dp=4',
+               PAR.sharded_wire_roundtrip(
+                   PAR.make_mesh(dp=4, devices=[dev] * 4),
+                   out_len=FRAMES * 52).program,
+               tuple(planes), {W.__name__: 4})
+        for sp in (1, 4):
+            pad = torch.from_numpy(_seq_padded(stream, sp)).to(dev)
+            yield ('seq_parallel_frame_scan sp=%d' % sp,
+                   PAR.seq_parallel_frame_scan(PAR.make_mesh(
+                       dp=1, sp=sp, devices=[dev] * sp)).program,
+                   (pad, len(stream)),
+                   {SW.__name__: 2 * (1 + max(sp - 1, 1) * sp),
+                    SW.__name__ + ':prepare_launches': sp})
+        for name in ('tick', 'full', 'full-deployed'):
+            yield ('bench %s' % name,
+                   TG.Program(fns[name], dev, static=(name,)), (db, dl),
+                   k1 if name == 'tick' else k2)
+
+    out = {}
+    for what, prog, args, per in cells():
+        out[what] = _program_cell(prog, args, per, what, smi)
+        del prog, args
+        torch.cuda.empty_cache()
+    _log('# phase 17 on %s: %d programs, %.2f s'
+         % (smi, len(out), time.perf_counter() - t0))
+    return out
+
+
 # -- phase 9: the sequence-parallel scan and its chunk walk -------------
 
 SEQ_TILES = (1 << 12, 1 << 13, 1 << 14, 1 << 15, 1 << 16)  # the sweep
@@ -2234,17 +2409,23 @@ def _seq_phase(PAR, SW, dev, smi: str, stream: bytes, bad_at: int,
     timed.  ``bad_at`` is a frame start at which a bad-prefix stream
     is cut."""
     import torch
+    from zkstream_tpu_torch.ops import tick_graph as TG
     from zkstream_tpu_torch.ops.frame_scan import (
         frame_starts_pointer_doubling)
 
     t0 = time.perf_counter()
     err = {'prepare': 0, 'walk': 0}
 
+    def on_card(n: int):
+        return torch.tensor(n, dtype=torch.int32, device=dev)
+
     def prepared(ext_d, base, end, n, tile):
-        """A state whose exit map the kernel built, held to
-        ``tile_exits_plain`` on the same card tensor (tolerance 0)."""
+        """A state whose exit map the kernel built (``n`` read on the
+        card, the chunk's end ``end`` = min(base + C, n) computed there),
+        held to ``tile_exits_plain`` on the same card tensor (tolerance
+        0)."""
         st = SW.new_state(ext_d.shape[0] - 4, dev, tile)
-        SW.seq_walk_prepare(ext_d, base, end, n, st)
+        SW.seq_walk_prepare(ext_d, base, on_card(n), st)
         want = SW.tile_exits_plain(ext_d, base, end, n, tile)
         e = int((st.exits.long() - want.long()).abs().max())
         err['prepare'] = max(err['prepare'], e)
@@ -2260,8 +2441,7 @@ def _seq_phase(PAR, SW, dev, smi: str, stream: bytes, bad_at: int,
         q, m, b = SW.walk_plain(ext, base, end, n, entry)
         ext_d = ext.to(dev)
         st = prepared(ext_d, base, end, n, tile)
-        SW.seq_walk(ext_d, base, end, n,
-                    torch.tensor(entry, dtype=torch.int32, device=dev), st)
+        SW.seq_walk(ext_d, base, on_card(n), on_card(entry), st)
         e = max(abs(int(st.exit) - q), abs(int(st.valid) - 1),
                 int(bool(st.bad) != b), int((st.mask.cpu() != m).sum()))
         err['walk'] = max(err['walk'], e)
@@ -2285,10 +2465,11 @@ def _seq_phase(PAR, SW, dev, smi: str, stream: bytes, bad_at: int,
         return found
 
     def scan_check(s: bytes, sp: int, what: str):
-        """The sp scan of ``s`` on the card == the plain scan (CPU
+        """The sp scan of ``s`` on the card (its first call: the
+        program's capture and one replay) == the plain scan (CPU
         shards) == pointer doubling, with exactly one exit map a chunk
-        and two walk launches a shard a ring step; each chunk's map and
-        walk == plain."""
+        and two walk launches a shard a ring step counted for the
+        replay; each chunk's map and walk == plain."""
         pad = _seq_padded(s, sp)
         dpad = torch.from_numpy(pad).to(dev)
         scan = PAR.seq_parallel_frame_scan(
@@ -2335,10 +2516,31 @@ def _seq_phase(PAR, SW, dev, smi: str, stream: bytes, bad_at: int,
                 got[0].cpu()[:n9], mask_full[:n9]):
             raise AssertionError('sp=%d: the scan != the plain cursor walk'
                                  % sp)
-        scan(dpad, n9)
-        scans[sp] = {'counts': counts,
-                     'ms': _time_ms(torch, lambda: scan(dpad, n9), 5)}
-        del dpad, got
+        # one program serves every n of the stream's length: 0, a frame's
+        # middle and the end, each one replay, each == pointer doubling
+        for n in (0, n9 // 2 + 1, n9):
+            SW.launches = SW.prepare_launches = 0
+            part = scan(dpad, n)
+            torch.cuda.synchronize()
+            dbl, dbad = frame_starts_pointer_doubling(dpad, n)
+            if (SW.prepare_launches, SW.launches) != counts or not (
+                    torch.equal(dbl, part[0])
+                    and bool(dbad) == bool(part[2])
+                    and int(part[1]) == int(dbl.sum())):
+                raise AssertionError('sp=%d at n=%d: launches %d + %d, or '
+                                     'the scan != pointer doubling'
+                                     % (sp, n, SW.prepare_launches,
+                                        SW.launches))
+        if len(scan.program.entries) != 1:
+            raise AssertionError('sp=%d: %d programs for one stream length'
+                                 % (sp, len(scan.program.entries)))
+        entry = scan.program.entry(dpad, n9)
+        entry.stage(dpad, n9)
+        with TG.recording():
+            scans[sp] = {'counts': counts,
+                         'ms': _time_ms(torch, lambda: scan(dpad, n9), 5),
+                         'replay_ms': _time_ms(torch, entry.run, 5)}
+        del dpad, got, part, entry
         marks['sp=%d' % sp] = time.perf_counter() - t0
     # the scan at sp=1 and sp=4 at each tile of the sweep: wall time a
     # call (host launches included) and device time
@@ -2353,10 +2555,14 @@ def _seq_phase(PAR, SW, dev, smi: str, stream: bytes, bad_at: int,
                     got[0].cpu()[:n9], mask_full[:n9]):
                 raise AssertionError('sp=%d, tile %d: the scan != the plain '
                                      'cursor walk' % (sp, tile))
-            scan_tiles[(tile, sp)] = {
-                'ms': _time_ms(torch, lambda: scan(dpad, n9), 5),
-                'device_ms': _device_ms(torch, lambda: scan(dpad, n9), 5)[0]}
-            del dpad, got
+            # the program's replay on the staged stream: the scan's own
+            # time, no staging or result copies
+            run = scan.program.entry(dpad, n9).run
+            with TG.recording():
+                scan_tiles[(tile, sp)] = {
+                    'ms': _time_ms(torch, run, 5),
+                    'device_ms': _device_ms(torch, run, 5)[0]}
+            del dpad, got, scan, run
     marks['scan tile sweep'] = time.perf_counter() - t0
     # every chunk of the sp=4 cut again at a tile every frame spans
     small = chunk_check(_seq_padded(stream, 4), 4, n9, SEQ_SMALL_TILE)
@@ -2409,16 +2615,17 @@ def _seq_phase(PAR, SW, dev, smi: str, stream: bytes, bad_at: int,
     ext1 = torch.from_numpy(ext_np).to(dev)
     L1 = len(pad1)
     zero = torch.zeros((), dtype=torch.int32, device=dev)
+    n9d = on_card(n9)
     tiles = {}
     for tile in SEQ_TILES:
         st = SW.new_state(L1, dev, tile)
 
         def prep():
-            SW.seq_walk_prepare(ext1, 0, n9, n9, st)
+            SW.seq_walk_prepare(ext1, 0, n9d, st)
 
         def walk():
             st.valid.zero_()
-            SW.seq_walk(ext1, 0, n9, n9, zero, st)
+            SW.seq_walk(ext1, 0, n9d, zero, st)
 
         def both():
             prep()
@@ -2454,15 +2661,20 @@ def _seq_phase(PAR, SW, dev, smi: str, stream: bytes, bad_at: int,
          '(tolerance 0) at sp=1 (%d exit-map + %d walk launches) and sp=4 '
          '(%d + %d = 4 chunks + 2 x (1 + 3 ring steps x 4 shards)), at tile '
          '%d, and the sp=4 chunks\' maps and walks at tile %d; spanning '
-         'frame and bad prefix at sp=4 too; %d random small chunks; checks %.1f s (done at: %s); scan %.3f ms '
-         '(sp=1), %.3f ms (sp=4), one card' % (
+         'frame and bad prefix at sp=4 too; %d random small chunks; one '
+         'program a stream length served n = 0, a frame\'s middle and '
+         'the end (== pointer doubling); checks %.1f s (done at: %s); scan '
+         '%.4f ms a call (staging, replay, result copies), replay %.4f ms '
+         '(sp=1); %.4f ms, replay %.4f ms (sp=4), one card' % (
              smi, n9, frames, *scans[1]['counts'], *scans[4]['counts'],
              SW.DEFAULT_TILE, SEQ_SMALL_TILE, SEQ_RANDOM_CHUNKS, check_s,
              ', '.join('%s %.1f s' % kv for kv in marks.items()),
-             scans[1]['ms'], scans[4]['ms']))
+             scans[1]['ms'], scans[1]['replay_ms'], scans[4]['ms'],
+             scans[4]['replay_ms']))
     for (tile, sp), t in scan_tiles.items():
-        _log('# phase 9 scan at sp=%d, tile %d on %s: %.4f ms a call (device '
-             '%.4f ms), one card' % (sp, tile, smi, t['ms'], t['device_ms']))
+        _log('# phase 9 scan at sp=%d, tile %d on %s: %.4f ms a replay '
+             '(device %.4f ms), one card' % (sp, tile, smi, t['ms'],
+                                             t['device_ms']))
     for tile, t in tiles.items():
         _log('# phase 9 whole-stream walk at tile %d on %s: exit map %.4f '
              'ms (device %.4f, out of L2 %.4f), walk %.4f ms (device %.4f, '
@@ -2915,6 +3127,7 @@ def main() -> int:
             ' '.join('%.3f' % (x * 1e3) for x in dstep_s), dwall))
 
     # -- 8. the sharded tick decode --
+    from zkstream_tpu_torch.ops import tick_graph as TG
     from zkstream_tpu_torch.ops.bytesops import u64pair_reduce_max
 
     t0 = time.perf_counter()
@@ -2933,7 +3146,7 @@ def main() -> int:
         step = PAR.sharded_wire_step(mesh, max_frames=FRAMES)
         torch.cuda.synchronize()
         W.launches = 0
-        st8, g8 = step(db, dl)
+        st8, g8 = step(db, dl)           # the capture, then one replay
         torch.cuda.synchronize()
         dp = mesh.shape['dp']
         if W.launches != dp:
@@ -2946,29 +3159,35 @@ def main() -> int:
         if [int(x) for x in g8] != want_g:
             raise AssertionError('%s: globals %s, single-device reductions %s'
                                  % (name, [int(x) for x in g8], want_g))
-        sharded[name] = (dp, W.launches,
-                         _time_ms(torch, lambda: step(db, dl), 20))
-    del st8, g8, ref
+        with TG.recording():
+            sharded[name] = (dp, W.launches,
+                             _time_ms(torch, lambda: step(db, dl), 20),
+                             _time_ms(torch, step.program.entry(db, dl).run,
+                                      20))
+    del st8, g8, ref, step
     rng8 = np.random.RandomState(SEED + 8)
 
     def plane(lo, hi):
         return torch.from_numpy(rng8.randint(
             lo, hi, (B_CORPUS, FRAMES)).astype(np.int32)).to(dev)
-    _rst, rtotal = PAR.sharded_wire_roundtrip(mesh4, out_len=FRAMES * 52)(
+    rt = PAR.sharded_wire_roundtrip(mesh4, out_len=FRAMES * 52)
+    W.launches = 0
+    _rst, rtotal = rt(
         plane(1, 1 << 20), plane(0, 1 << 16), plane(0, 1 << 20),
         torch.zeros((B_CORPUS, FRAMES), dtype=torch.int32, device=dev),
         plane(16, 48))
-    if int(rtotal) != B_CORPUS * FRAMES:
-        raise AssertionError('roundtrip: %d of %d frames'
-                             % (int(rtotal), B_CORPUS * FRAMES))
-    del _rst, db, dl
+    if int(rtotal) != B_CORPUS * FRAMES or W.launches != 4:
+        raise AssertionError('roundtrip: %d of %d frames, %d K1 launches'
+                             % (int(rtotal), B_CORPUS * FRAMES, W.launches))
+    del _rst, db, dl, rt
     _log('# phase 8 on %s: sharded_wire_step == wire_pipeline_step_auto '
          'field for field on %d x %d, globals %s == its reductions; %s; '
          'single-device step %.4f ms; sharded_wire_roundtrip at dp=4: %d '
-         'frames = B x F (%.2f s)'
+         'frames = B x F, 4 K1 launches a replay (%.2f s)'
          % (smi, B_CORPUS, FRAMES, want_g,
-            '; '.join('%s: dp=%d, %d K1 launches, %.4f ms a step'
-                      % (k, v[0], v[1], v[2]) for k, v in sharded.items()),
+            '; '.join('%s: dp=%d, %d K1 launches a replay, %.4f ms a call '
+                      '(staging, replay, result copies), %.4f ms a replay'
+                      % (k, *v) for k, v in sharded.items()),
             single_ms, int(rtotal), time.perf_counter() - t0))
 
     # -- 9. the sequence-parallel scan and its chunk walk --
@@ -3032,6 +3251,13 @@ def main() -> int:
     graphs16 = _graph_phase(PAR, W, K2, FleetIngest, dev, smi, streams,
                             slots[2]['off'])
 
+    # -- 17. the JAX package's other one-card programs as CUDA graphs --
+    from zkstream_tpu_torch import bench
+    stream = b''.join(buf_np[i, :lens_np[i]].tobytes() for i in range(FLEET))
+    programs17 = _program_phase(PAR, bench, W, K2, SW, dev, smi, buf_np,
+                                lens_np, stream)
+    del stream
+
     # -- report --
     seq_t = seq9['tiles'][SW.DEFAULT_TILE]
     kernels = [{
@@ -3054,9 +3280,12 @@ def main() -> int:
                    'bound_share': k1b_bound_ms / k1b_ms},
         'tick_graph': {k: v for k, v in graphs16.items()
                        if 'host bodies' in k},
+        'programs': {k: v for k, v in programs17.items()
+                     if W.__name__ in v['launches']},
         'launches_by_path': {
             'phase 4 FleetIngest, C codecs': launches,
-            'phase 8 sharded_wire_step dp=4': sharded['dp=4 on one card'][1],
+            'phase 8 sharded_wire_step dp=4 (one replay)':
+                sharded['dp=4 on one card'][1],
             'phase 10 MeshFleetIngest host bodies': mesh_runs['host']['k1'],
             'phase 11 MultihostFleetIngest': mh['k1'],
             'phase 12 live Clients, FleetIngest host bodies':
@@ -3093,6 +3322,8 @@ def main() -> int:
                    'bound_share': k2b_bound_ms / k2b_ms},
         'tick_graph': {k: v for k, v in graphs16.items()
                        if 'device bodies' in k},
+        'programs': {k: v for k, v in programs17.items()
+                     if K2.__name__ in v['launches']},
         'launches_by_path': {
             'phase 7 FleetIngest device bodies': k2_launches,
             'phase 10 MeshFleetIngest device bodies':
@@ -3155,6 +3386,10 @@ def main() -> int:
         'shape': {'bytes': seq9['bytes'], 'frames': seq9['frames']},
         'scan_ms': {'sp=1': seq9['scans'][1]['ms'],
                     'sp=4': seq9['scans'][4]['ms']},
+        'scan_replay_ms': {'sp=1': seq9['scans'][1]['replay_ms'],
+                           'sp=4': seq9['scans'][4]['replay_ms']},
+        'programs': {k: v for k, v in programs17.items()
+                     if SW.__name__ in v['launches']},
         'scan_by_tile': {
             '%d sp=%d' % k: v for k, v in seq9['scan_tiles'].items()},
         'launches_by_path': {

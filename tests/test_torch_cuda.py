@@ -303,6 +303,7 @@ def test_seq_scan_and_chunk_walk_match_plain_on_card(cuda_device, sp, name):
     assert torch.equal(dbl, want[0]) and bool(dbad) == bool(want[2])
     C = N // sp
     entry = 0
+    nd = torch.tensor(len(s), dtype=torch.int32, device=cuda_device)
     for i in range(sp):
         ext = torch.from_numpy(np.concatenate([pad[i * C:(i + 1) * C],
                                                pad[((i + 1) % sp) * C:][:4]]))
@@ -310,10 +311,10 @@ def test_seq_scan_and_chunk_walk_match_plain_on_card(cuda_device, sp, name):
         q, mask, bad = SW.walk_plain(ext, i * C, end, len(s), entry)
         st = SW.new_state(C, cuda_device)
         ext_d = ext.to(cuda_device)
-        SW.seq_walk_prepare(ext_d, i * C, end, len(s), st)
+        SW.seq_walk_prepare(ext_d, i * C, nd, st)
         assert torch.equal(st.exits.cpu(), SW.tile_exits_plain(
             ext, i * C, end, len(s), st.tile))
-        SW.seq_walk(ext_d, i * C, end, len(s),
+        SW.seq_walk(ext_d, i * C, nd,
                     torch.tensor(entry, dtype=torch.int32,
                                  device=cuda_device), st)
         assert (int(st.valid), int(st.exit), bool(st.bad)) == (1, q, bad)
@@ -328,7 +329,8 @@ def test_exit_map_and_chunk_walk_match_plain_on_random_chunks(cuda_device,
     """The exit-map kernel == ``tile_exits_plain`` and the hop chain +
     mark == ``walk_plain`` on random chunks (frames of a stream, sparse
     junk, a zero first byte), from entries inside, before and past the
-    chunk and saturated, with ``chunk_end`` inside or before it."""
+    chunk and saturated, with ``n`` (on the device; the kernels' chunk
+    end is ``min(base + C, n)``) inside, before or past it."""
     from zkstream_tpu_torch.ops import seq_walk as SW
 
     s = _walk_streams()['corpus']
@@ -349,40 +351,45 @@ def test_exit_map_and_chunk_walk_match_plain_on_random_chunks(cuda_device,
         end = min(base + C, n)
         t = torch.from_numpy(ext)
         d = t.to(cuda_device)
+        nd = zero + n
         # (entries before the chunk start near it: from far before, a
         # zero first byte makes both walks take 4 bytes a step)
         for entry in (base + int(rng.randint(0, C)), base,
                       max(base - int(rng.randint(1, 400)), 0),
                       max(base - 4, 0), base + C + 1, SW.SATURATED):
             st = SW.new_state(C, cuda_device, tile)
-            SW.seq_walk_prepare(d, base, end, n, st)
+            SW.seq_walk_prepare(d, base, nd, st)
             assert torch.equal(st.exits.cpu(), SW.tile_exits_plain(
                 t, base, end, n, tile))
-            SW.seq_walk(d, base, end, n, zero + entry, st)
+            SW.seq_walk(d, base, nd, zero + entry, st)
             q, mask, bad = SW.walk_plain(t, base, end, n, entry)
             assert (int(st.valid), int(st.exit), bool(st.bad)) == \
                 (1, q, bad), (C, base, end, n, entry)
             assert torch.equal(st.mask.cpu(), mask)
             # a second offer is not adopted: the state keeps its walk
-            SW.seq_walk(d, base, end, n, zero + base, st)
+            SW.seq_walk(d, base, nd, zero + base, st)
             assert int(st.exit) == q and torch.equal(st.mask.cpu(), mask)
 
 
 @pytest.mark.cuda
 def test_chunk_walk_on_card_needs_its_exit_map(cuda_device):
     """A walk on the card whose state was never prepared, or was
-    prepared for another chunk end, raises; nothing walks serially."""
+    prepared for another chunk, raises; nothing walks serially.  A card's
+    walk reads ``n`` on the device only: a host int raises."""
     from zkstream_tpu_torch.ops import seq_walk as SW
 
     ext = torch.zeros(64 + 4, dtype=torch.uint8, device=cuda_device)
     st = SW.new_state(64, cuda_device)
     zero = torch.zeros((), dtype=torch.int32, device=cuda_device)
+    n = zero + 64
     before = SW.launches
     with pytest.raises(RuntimeError, match='not prepared'):
-        SW.seq_walk(ext, 0, 64, 64, zero, st)
-    SW.seq_walk_prepare(ext, 0, 64, 64, st)
+        SW.seq_walk(ext, 0, n, zero, st)
+    SW.seq_walk_prepare(ext, 0, n, st)
     with pytest.raises(RuntimeError, match='not prepared'):
-        SW.seq_walk(ext, 0, 60, 64, zero, st)
+        SW.seq_walk(ext, 4, n, zero, st)
+    with pytest.raises(ValueError, match='int32 0-d tensor'):
+        SW.seq_walk(ext, 0, 64, zero, st)
     assert SW.launches == before and int(st.valid) == 0
 
 
@@ -777,3 +784,89 @@ def test_failed_capture_raises_on_its_tick(cuda_device):
     assert all(c.got == [] for c in conns) and ing.ticks == 0
     assert len(ing._exec) == 1 and all(
         isinstance(v, BaseException) for v in ing._exec.values())
+
+
+def _program_calls(kind, dev):
+    """A program on ``dev`` (``kind``: the sharded step at dp=1 or 4, the
+    roundtrip at dp=4, the scan at sp=1 or 4) and three calls' arguments
+    of one key (for the scan, one N and three n: 0, mid-frame and the
+    stream's end), made from seeds."""
+    from zkstream_tpu_torch.parallel import (make_mesh,
+                                             seq_parallel_frame_scan,
+                                             sharded_wire_roundtrip,
+                                             sharded_wire_step)
+
+    name, k = kind.split('-')
+    k = int(k)
+    if name == 'scan':
+        s = _walk_streams()['corpus']
+        N = -(-(len(s) + 8) // (4 * k)) * 4 * k
+        pad = np.zeros(N, np.uint8)
+        pad[:len(s)] = np.frombuffer(s, np.uint8)
+        buf = torch.from_numpy(pad).to(dev)
+        fn = seq_parallel_frame_scan(make_mesh(dp=1, sp=k, devices=[dev] * k))
+        return fn, [(buf, n) for n in (0, len(s) // 2 + 3, len(s))]
+    mesh = make_mesh(dp=k, devices=[dev] * k)
+    if name == 'step':
+        calls = []
+        for seed in (5, 6, 7):
+            buf, lens, _slots, _maps = corpus.fleet(B=64, seed=seed, frames=32)
+            calls.append(tuple(TP.batch_to_device(buf, lens, dev)))
+        return sharded_wire_step(mesh, max_frames=32), calls
+    rng = np.random.RandomState(11)
+    calls = []
+    for _ in range(3):
+        planes = [rng.randint(lo, hi, (64, 8)).astype(np.int32)
+                  for lo, hi in ((1, 1 << 20), (0, 1 << 16), (0, 1 << 20),
+                                 (0, 1), (0, 48))]
+        calls.append(tuple(torch.from_numpy(p).to(dev) for p in planes))
+    return sharded_wire_roundtrip(mesh, out_len=512), calls
+
+
+def _leaves(out):
+    from torch.utils._pytree import tree_flatten
+    return tree_flatten(out)[0]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('kind', ['step-1', 'step-4', 'roundtrip-4',
+                                  'scan-1', 'scan-4'])
+def test_program_replays_equal_eager_chain_on_card(cuda_device, kind):
+    """A one-card program is captured once for its key (one entry over
+    three calls on other data; for the scan, three ``n`` of one N) and
+    every call replays it, counting its launches per replay: K1 once a
+    shard; at sp the scan's sp exit maps and 2 x (1 + max(sp - 1, 1) x
+    sp) walk launches.  Each replay equals the eager chain on the same
+    staged inputs bit for bit and the same program on CPU shards, and a
+    returned result is not overwritten by later calls."""
+    from zkstream_tpu_torch.ops import seq_walk as SW
+    from zkstream_tpu_torch.ops import tick_graph as TG
+
+    fn, calls = _program_calls(kind, cuda_device)
+    cpu_fn, cpu_calls = _program_calls(kind, torch.device('cpu'))
+    k = int(kind.split('-')[1])
+    per = ({SW.__name__: 2 * (1 + max(k - 1, 1) * k),
+            SW.__name__ + ':prepare_launches': k} if kind.startswith('scan')
+           else {TW.__name__: k})
+    prog = fn.program
+    assert fn.graphed and prog.graphed
+    kept = []
+    for args, cpu_args in zip(calls, cpu_calls):
+        before = {key: TG.launch_count(key) for key in per}
+        got = fn(*args)
+        torch.cuda.synchronize()
+        assert {key: TG.launch_count(key) - before[key]
+                for key in per} == per
+        e = prog.entry(*args)
+        assert e.graph.launches == per and e.graph.warm_launches == per
+        with TG.recording():
+            want = prog.fn(*e.inputs)
+        for a, b in zip(_leaves(want), _leaves(got)):
+            assert torch.equal(a, b)
+        for a, b in zip(_leaves(cpu_fn(*cpu_args)), _leaves(got)):
+            assert torch.equal(a, b.cpu())
+        kept.append((got, [t.clone() for t in _leaves(got)]))
+    assert len(prog.entries) == 1
+    for got, copy in kept:
+        for a, b in zip(_leaves(got), copy):
+            assert torch.equal(a, b)

@@ -233,13 +233,13 @@ def test_seq_walk_ring_step_adopts_once():
     C = ext.shape[0] - 4
     st = SW.new_state(C, 'cpu')
     before = SW.launches
-    SW.seq_walk(ext, 0, C, C, torch.tensor(-1, dtype=torch.int32), st)
+    SW.seq_walk(ext, 0, C, torch.tensor(-1, dtype=torch.int32), st)
     assert int(st.valid) == 0 and int(st.exit) == -1
-    SW.seq_walk(ext, 0, C, 20, torch.tensor(0, dtype=torch.int32), st)
+    SW.seq_walk(ext, 0, 20, torch.tensor(0, dtype=torch.int32), st)
     assert (int(st.valid), int(st.exit), bool(st.bad)) == (1, 20, False)
     assert st.mask.nonzero().flatten().tolist() == [0]
-    SW.seq_walk(ext, 0, C, 20, torch.tensor(4, dtype=torch.int32), st)
+    SW.seq_walk(ext, 0, 20, torch.tensor(4, dtype=torch.int32), st)
     assert int(st.exit) == 20                  # walked once only
     assert SW.launches == before               # no kernel on the CPU
     with pytest.raises(ValueError):
-        SW.seq_walk(ext, 0, C, 20, torch.tensor(0), st)   # int64 cursor
+        SW.seq_walk(ext, 0, 20, torch.tensor(0), st)   # int64 cursor

@@ -281,16 +281,20 @@ def test_prepare_on_the_cpu_records_the_chunk_and_builds_no_map():
     assert st.tile_entry.shape == (200 // 16 + 1 + 1,)
     st.exits.fill_(7)
     before = SW.prepare_launches
-    SW.seq_walk_prepare(ext, 0, 200, len(s), st)
+    SW.seq_walk_prepare(ext, 0, len(s), st)
     assert SW.prepare_launches == before
     assert bool((st.exits == 7).all())
-    assert st.prepared == (ext.data_ptr(), 0, 200, len(s))
-    SW.seq_walk(ext, 0, 200, len(s), torch.zeros((), dtype=torch.int32), st)
-    q, mask, bad = SW.walk_plain(ext, 0, 200, len(s), 0)
+    assert st.prepared == (ext.data_ptr(), 0)
+    SW.seq_walk(ext, 0, len(s), torch.zeros((), dtype=torch.int32), st)
+    q, mask, bad = SW.walk_plain(ext, 0, min(200, len(s)), len(s), 0)
     assert (int(st.exit), bool(st.bad)) == (q, bad)
     assert torch.equal(st.mask, mask)
-    with pytest.raises(ValueError):
-        SW.seq_walk_prepare(ext, 0, 201, len(s), st)   # past the chunk
+    for base, n in ((2**31 - 204, len(s)), (-1, len(s)), (0, -1),
+                    (0, 2**31)):
+        with pytest.raises(ValueError):   # cursors past int32
+            SW.seq_walk_prepare(ext, base, n, st)
+    with pytest.raises(ValueError):       # n on the CPU: an int32 tensor
+        SW.seq_walk_prepare(ext, 0, torch.tensor(len(s)), st)
     for bad in (4, 12, 1 << 17):
         with pytest.raises(ValueError):
             SW.new_state(200, 'cpu', tile=bad)
@@ -303,10 +307,10 @@ def test_seq_scan_prepares_every_chunk_before_the_ring(monkeypatch, sp):
     calls, maps = [], []
     prep, walk = SW.seq_walk_prepare, SW.seq_walk
 
-    def counted_prepare(ext, base, end, n, state):
+    def counted_prepare(ext, base, n, state):
         calls.append('prepare')
-        prep(ext, base, end, n, state)
-        maps.append(state.prepared == (ext.data_ptr(), base, end, n))
+        prep(ext, base, n, state)
+        maps.append(state.prepared == (ext.data_ptr(), base))
 
     def counted_walk(*a):
         calls.append('walk')

@@ -206,51 +206,15 @@ def bench_ext_full(streams, slots) -> float | None:
     return total / dt / (1024 * 1024)
 
 
-def bench_tensor(buf, lens, streams, pkts, slots, device='cuda',
-                 calls: dict | None = None
-                 ) -> tuple[float, float, float]:
-    """Tensor pipeline MiB/s on ``device``: the protocol tick (header
-    decode + routing) and the **full decode** (tick + batched
-    reply-body parse, ops/replies.py — the work of
-    lib/zk-buffer.js:275-442).  Returns (tick_mibs, full_mibs,
-    full_deployed_mibs).  ``calls``, when given, receives the calls
-    each candidate made, warm-up included: on a card the tick launches
-    K1 once a call and each full decode K2 once a call.
+def candidate_fns() -> dict:
+    """The functions of :func:`bench_tensor`'s three candidates, each
+    ``fn(buf, lens)`` on a ``[B, L]`` batch: ``tick``, ``full`` and
+    ``full-deployed``."""
+    from .ops.pipeline import wire_full_decode, wire_pipeline_step_auto
+    from .ops.replies import parse_list_bodies, parse_reply_bodies
 
-    Three candidates, each timed as the min over 4 rounds of ``reps``
-    calls, with a device synchronize closing each batch of calls:
-
-    - ``tick``: ``wire_pipeline_step_auto`` — kernel K1 on a CUDA
-      tensor (its plain torch version on a CPU tensor);
-    - ``full``: the toy-width full decode (``max_data=16``,
-      ``max_path=8``) — ``wire_full_decode`` (kernel K2) feeding
-      ``parse_reply_bodies`` its GET_DATA planes;
-    - ``full-deployed``: the same at the deployed widths plus
-      ``parse_list_bodies`` — the step ``FleetIngest(body_mode=
-      'device')`` runs.
-
-    All three are mandatory: a failure fails the run.  The correctness
-    gates read host copies of each candidate's planes after every
-    candidate has been timed, so no readback sits inside a timed
-    window."""
-    import torch
-
-    from .ops.pipeline import (
-        batch_to_device,
-        wire_full_decode,
-        wire_pipeline_step_auto,
-    )
-    from .ops.replies import (
-        parse_list_bodies,
-        parse_reply_bodies,
-    )
-
-    jb, jl = batch_to_device(buf, lens, device)
-    cuda = jb.device.type == 'cuda'
-
-    def sync():
-        if cuda:
-            torch.cuda.synchronize(jb.device)
+    def tick(b, l):
+        return wire_pipeline_step_auto(b, l, max_frames=FRAMES)
 
     def full(b, l):
         st, gd = wire_full_decode(b, l, max_frames=FRAMES, max_data=16)
@@ -274,36 +238,91 @@ def bench_tensor(buf, lens, streams, pkts, slots, device='cuda',
                                max_scheme=DEP_SCHEME, max_id=DEP_ID)
         return st, bd, lb
 
+    return {'tick': tick, 'full': full, 'full-deployed': full_deployed}
+
+
+def bench_tensor(buf, lens, streams, pkts, slots, device='cuda',
+                 calls: dict | None = None
+                 ) -> tuple[float, float, float]:
+    """Tensor pipeline MiB/s on ``device``: the protocol tick (header
+    decode + routing) and the **full decode** (tick + batched
+    reply-body parse, ops/replies.py — the work of
+    lib/zk-buffer.js:275-442).  Returns (tick_mibs, full_mibs,
+    full_deployed_mibs).  ``calls``, when given, receives the calls
+    each candidate made, warm-up included: on a card the tick launches
+    K1 once a call and each full decode K2 once a call.
+
+    Each candidate is one program (``ops/tick_graph.Program``), as the
+    reference bench jits each: the corpus is staged into the program's
+    inputs once, and a call is the program run on them (on a card one
+    CUDA graph replay, captured on the program's first use with its
+    eager warm-up run apart; on the CPU the plain versions, eagerly).
+    Each is timed as the min over 4 rounds of ``reps`` calls, with a
+    device synchronize closing each batch of calls, nothing else in the
+    window:
+
+    - ``tick``: ``wire_pipeline_step_auto`` — kernel K1 on a CUDA
+      tensor (its plain torch version on a CPU tensor);
+    - ``full``: the toy-width full decode (``max_data=16``,
+      ``max_path=8``) — ``wire_full_decode`` (kernel K2) feeding
+      ``parse_reply_bodies`` its GET_DATA planes;
+    - ``full-deployed``: the same at the deployed widths plus
+      ``parse_list_bodies`` — the step ``FleetIngest(body_mode=
+      'device')`` runs.
+
+    All three are mandatory: a failure fails the run.  The correctness
+    gates read host copies of each candidate's planes, the outputs of
+    its last call, after every candidate has been timed, so no readback
+    sits inside a timed window."""
+    import torch
+
+    from .ops.pipeline import batch_to_device
+    from .ops.tick_graph import Program
+
+    jb, jl = batch_to_device(buf, lens, device)
+    cuda = jb.device.type == 'cuda'
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize(jb.device)
+
+    fns = candidate_fns()
     # the plain versions on the host CPU are orders slower per byte;
     # fewer repeats keep a CPU run short without changing what is
     # measured (min-of-rounds either way)
     reps = REPEATS if cuda else max(6, REPEATS // 3)
     candidates = [
-        ('tick', lambda b, l: wire_pipeline_step_auto(
-            b, l, max_frames=FRAMES), reps, None),
-        ('full', full, reps, None),
+        ('tick', fns['tick'], reps, None),
+        ('full', fns['full'], reps, None),
         # deployed widths cost ~20x the toy planes in output bytes
         # (ONE output is ~2.2 GiB: 256 B data + 256 B path + 16x64
         # children names + ACL planes per slot, over 16384x64 slots);
         # fewer repeats AND a 2-deep cap on the calls queued between
-        # synchronizes bound the memory the queued calls hold
-        ('full-deployed', full_deployed, max(4, reps // 5), 2),
+        # synchronizes, as the reference bench keeps them (a replay
+        # holds no memory of its own; the cap bounds what queued eager
+        # calls hold on the CPU)
+        ('full-deployed', fns['full-deployed'], max(4, reps // 5), 2),
     ]
     total = int(lens.sum())
     timed = []
     if calls is None:
         calls = {}
     for name, fn, reps, inflight in candidates:
-        out = fn(jb, jl)  # build the kernel + warm
+        # build the kernel, capture the program, stage the corpus
+        prog = Program(fn, jb.device, static=(name,))
+        entry = prog.entry(jb, jl)
+        entry.stage(jb, jl)
+        run = entry.run
+        out = run()  # warm
         sync()
         calls[name] = 1
 
         def time_rounds(cap, rounds=4):
-            # each call's outputs are dropped as soon as it is queued:
             # the synchronize closing a batch of ``cap`` calls waits for
-            # all of them (valid timing), and the allocator reuses the
-            # big body planes of a retired call instead of holding
-            # REPEATS full-decode outputs (0.5-4 GiB each)
+            # all of them (valid timing); a replay overwrites the last
+            # one's outputs, and on the CPU each call's are dropped as
+            # soon as the next is made
+            nonlocal out
             dts = []
             for _ in range(rounds):
                 t0 = time.perf_counter()
@@ -311,26 +330,17 @@ def bench_tensor(buf, lens, streams, pkts, slots, device='cuda',
                 while done < reps:
                     k = min(cap, reps - done)
                     for _ in range(k):
-                        fn(jb, jl)
-                        calls[name] += 1
+                        out = run()
                     sync()
                     done += k
                 dts.append((time.perf_counter() - t0) / reps)
+                calls[name] += reps
             return dts
 
-        try:
-            dts = time_rounds(inflight or reps)
-        except torch.cuda.OutOfMemoryError as e:
-            if inflight is None or inflight <= 1:
-                raise
-            # a device OOM mid-timing (big planes) must not kill the
-            # flagship: serialize the calls and retry.  Only an OOM
-            # qualifies — anything else is deterministic
-            print(f'# {name}: timing at inflight={inflight} hit '
-                  f'device OOM ({e!r}); retrying serialized',
-                  file=sys.stderr)
-            torch.cuda.empty_cache()
-            dts = time_rounds(1)
+        # (a replay allocates nothing, so the timing cannot run out of
+        # device memory: the reference's serialized OOM retry has no
+        # counterpart here)
+        dts = time_rounds(inflight or reps)
         mibs = total / min(dts) / (1024 * 1024)
         timed.append((name, mibs, out))
 

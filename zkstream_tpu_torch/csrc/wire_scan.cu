@@ -780,6 +780,14 @@ __device__ __forceinline__ void load_tile(const uint8_t* __restrict__ ext,
     sb[k] = __ldg(ext + lo + k);
 }
 
+// The stream's valid length, read from the device (so one captured launch
+// serves every n), and the chunk's end min(base + C, n) from it.
+struct ChunkEnd {
+  u32 n, chunk_end;
+  __device__ __forceinline__ ChunkEnd(const int32_t* n_dev, u32 base, u32 C)
+      : n(static_cast<u32>(max(*n_dev, 0))), chunk_end(min(base + C, n)) {}
+};
+
 __device__ __forceinline__ int32_t be_shared(const uint8_t* sb, u32 i) {
   return static_cast<int32_t>((u32(sb[i]) << 24) | (u32(sb[i + 1]) << 16) |
                               (u32(sb[i + 2]) << 8) | u32(sb[i + 3]));
@@ -820,6 +828,9 @@ struct TileWalk {
   }
 };
 
+// The three kernels read n through a pointer (`n_dev`, an int32 on the
+// device) and compute chunk_end from it; base and C are launch arguments.
+//
 // Step 1: the tile exit map.  Shared memory: tile_bytes(T) bytes, then T
 // uint16 pointers.  A pointer at itself marks the end of the walk inside
 // the tile; pointer jumping in place is safe because every value a thread
@@ -827,7 +838,7 @@ struct TileWalk {
 // far along as a synchronous one.
 __global__ void __launch_bounds__(kPrepMaxThreads)
     seq_prepare_kernel(const uint8_t* __restrict__ ext, u32 C, int tshift,
-                       u32 base, u32 chunk_end, u32 n,
+                       u32 base, const int32_t* __restrict__ n_dev,
                        int32_t* __restrict__ exits) {
   extern __shared__ __align__(16) uint8_t smem[];
   const u32 T = 1u << tshift;
@@ -837,9 +848,10 @@ __global__ void __launch_bounds__(kPrepMaxThreads)
   volatile uint16_t* ptr = reinterpret_cast<uint16_t*>(smem + tile_bytes(T));
   load_tile(ext, C + 4, lo, T, sb);
   __syncthreads();
-  const TileWalk tw{base, chunk_end, n,
+  const ChunkEnd ce(n_dev, base, C);
+  const TileWalk tw{base, ce.chunk_end, ce.n,
                     min(static_cast<long long>(base) + lo + T,
-                        static_cast<long long>(chunk_end)),
+                        static_cast<long long>(ce.chunk_end)),
                     lo};
   for (u32 i = threadIdx.x; i < len; i += blockDim.x) {
     int32_t v;
@@ -873,7 +885,7 @@ __global__ void __launch_bounds__(kPrepMaxThreads)
 // at once).
 __global__ void __launch_bounds__(kHopThreads)
     seq_hop_kernel(const uint8_t* __restrict__ ext, u32 C, int tshift,
-                   u32 base, u32 chunk_end, u32 n,
+                   u32 base, const int32_t* __restrict__ n_dev,
                    const int32_t* __restrict__ exits,
                    const int32_t* __restrict__ rcv, int32_t* __restrict__ valid,
                    int32_t* __restrict__ exit_q, uint8_t* __restrict__ bad_out,
@@ -889,6 +901,8 @@ __global__ void __launch_bounds__(kHopThreads)
   __syncthreads();
   if (threadIdx.x != 0) return;
   *valid = 1;
+  const ChunkEnd ce(n_dev, base, C);
+  const u32 n = ce.n, chunk_end = ce.chunk_end;
   const ChunkReader rd{ext, base, C + 4};
   u32 q = static_cast<u32>(entry);
   bool bad = false, stopped = false;
@@ -922,7 +936,7 @@ __global__ void __launch_bounds__(kHopThreads)
 // A tile the walk did not visit is written all zero.
 __global__ void __launch_bounds__(kMarkThreads)
     seq_mark_kernel(const uint8_t* __restrict__ ext, u32 C, int tshift,
-                    u32 base, u32 chunk_end, u32 n,
+                    u32 base, const int32_t* __restrict__ n_dev,
                     const int32_t* __restrict__ tile_entry, u32 ntiles,
                     uint8_t* __restrict__ mask) {
   if (tile_entry[ntiles] == 0) return;
@@ -940,9 +954,10 @@ __global__ void __launch_bounds__(kMarkThreads)
   if (s0 >= 0) load_tile(ext, C + 4, lo, T, sb);
   __syncthreads();
   if (s0 >= 0 && threadIdx.x == 0) {
-    const long long nn = n;
+    const ChunkEnd ce(n_dev, base, C);
+    const long long nn = ce.n;
     const long long stop = min(static_cast<long long>(base) + lo + T,
-                               static_cast<long long>(chunk_end));
+                               static_cast<long long>(ce.chunk_end));
     long long q = static_cast<long long>(base) + s0;
     while (q < stop && q + 4 <= nn) {
       const u32 i = static_cast<u32>(q - base) - lo;
@@ -1035,13 +1050,14 @@ extern "C" int full_scan_launch(const void* buf, const void* lens, int B,
 }
 
 // The chunk walk's launchers.  Cursors are checked below 2^31 with
-// base + C + 4 among them, so a cursor inside the chunk is an int32, and
-// chunk_end may not pass the chunk (the exit map covers it alone).
+// base + C + 4 among them, so a cursor inside the chunk is an int32; n is
+// an int32 on the device (`n_dev`), so every cursor the kernels compare
+// with it is too, and chunk_end = min(base + C, n) never passes the chunk.
 static bool chunk_args_ok(long long C, int tshift, long long base,
-                          long long chunk_end, long long n) {
-  return C >= 1 && base >= 0 && base + C + 4 <= INT32_MAX && chunk_end >= 0 &&
-         chunk_end <= base + C && n >= 0 && n <= INT32_MAX &&
-         tshift >= kMinTileShift && tshift <= kMaxTileShift;
+                          const void* n_dev) {
+  return C >= 1 && base >= 0 && base + C + 4 <= INT32_MAX &&
+         n_dev != nullptr && tshift >= kMinTileShift &&
+         tshift <= kMaxTileShift;
 }
 
 static u32 tile_count(long long C, int tshift) {
@@ -1081,10 +1097,10 @@ extern "C" int seq_walk_geometry(int tshift, int* prep_smem,
 }
 
 extern "C" int seq_prepare_launch(const void* ext, long long C, int tshift,
-                                  long long base, long long chunk_end,
-                                  long long n, void* exits, void* stream) {
+                                  long long base, const void* n_dev,
+                                  void* exits, void* stream) {
   static int seen[64];
-  if (!chunk_args_ok(C, tshift, base, chunk_end, n))
+  if (!chunk_args_ok(C, tshift, base, n_dev))
     return static_cast<int>(cudaErrorInvalidValue);
   int smem, threads, ms, mt, ht;
   seq_walk_geometry(tshift, &smem, &threads, &ms, &mt, &ht);
@@ -1093,21 +1109,21 @@ extern "C" int seq_prepare_launch(const void* ext, long long C, int tshift,
   seq_prepare_kernel<<<tile_count(C, tshift), threads, smem,
                        static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t*>(ext), static_cast<u32>(C), tshift,
-      static_cast<u32>(base), static_cast<u32>(chunk_end), static_cast<u32>(n),
+      static_cast<u32>(base), static_cast<const int32_t*>(n_dev),
       static_cast<int32_t*>(exits));
   return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" int seq_hop_launch(const void* ext, long long C, int tshift,
-                              long long base, long long chunk_end,
-                              long long n, const void* exits, const void* rcv,
-                              void* valid, void* exit_q, void* bad,
-                              void* tile_entry, void* stream) {
-  if (!chunk_args_ok(C, tshift, base, chunk_end, n))
+                              long long base, const void* n_dev,
+                              const void* exits, const void* rcv, void* valid,
+                              void* exit_q, void* bad, void* tile_entry,
+                              void* stream) {
+  if (!chunk_args_ok(C, tshift, base, n_dev))
     return static_cast<int>(cudaErrorInvalidValue);
   seq_hop_kernel<<<1, kHopThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t*>(ext), static_cast<u32>(C), tshift,
-      static_cast<u32>(base), static_cast<u32>(chunk_end), static_cast<u32>(n),
+      static_cast<u32>(base), static_cast<const int32_t*>(n_dev),
       static_cast<const int32_t*>(exits), static_cast<const int32_t*>(rcv),
       static_cast<int32_t*>(valid), static_cast<int32_t*>(exit_q),
       static_cast<uint8_t*>(bad), static_cast<int32_t*>(tile_entry),
@@ -1116,11 +1132,11 @@ extern "C" int seq_hop_launch(const void* ext, long long C, int tshift,
 }
 
 extern "C" int seq_mark_launch(const void* ext, long long C, int tshift,
-                               long long base, long long chunk_end,
-                               long long n, const void* tile_entry,
-                               void* mask, void* stream) {
+                               long long base, const void* n_dev,
+                               const void* tile_entry, void* mask,
+                               void* stream) {
   static int seen[64];
-  if (!chunk_args_ok(C, tshift, base, chunk_end, n))
+  if (!chunk_args_ok(C, tshift, base, n_dev))
     return static_cast<int>(cudaErrorInvalidValue);
   int ps, pt, smem, threads, ht;
   seq_walk_geometry(tshift, &ps, &pt, &smem, &threads, &ht);
@@ -1129,7 +1145,7 @@ extern "C" int seq_mark_launch(const void* ext, long long C, int tshift,
   const u32 ntiles = tile_count(C, tshift);
   seq_mark_kernel<<<ntiles, threads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t*>(ext), static_cast<u32>(C), tshift,
-      static_cast<u32>(base), static_cast<u32>(chunk_end), static_cast<u32>(n),
+      static_cast<u32>(base), static_cast<const int32_t*>(n_dev),
       static_cast<const int32_t*>(tile_entry), ntiles,
       static_cast<uint8_t*>(mask));
   return static_cast<int>(cudaGetLastError());

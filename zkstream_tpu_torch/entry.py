@@ -63,6 +63,9 @@ def dryrun_multichip(n_devices: int, device='cuda', devices=None) -> dict:
     of live clients (``Client``) against an in-process ``ZKServer`` through
     ``MeshFleetIngest`` and ``MultihostFleetIngest``, each fleet max
     equal to the sessions' largest zxid.  Returns the counts it checked.
+    With every shard on one card (``devices=[cuda:0] * n``) the step,
+    the roundtrip and the scan each run as one CUDA graph replay
+    (``ops/tick_graph.Program``); over several cards they run eagerly.
     """
     import torch
 

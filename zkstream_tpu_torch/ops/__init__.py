@@ -19,7 +19,9 @@
 - :mod:`pipeline` — the tick decode over a [B, L] batch, with or
   without the GET_DATA bodies;
 - :mod:`tick_graph` — a tick program captured once into a CUDA graph
-  and replayed each tick, with the kernels' launch counts kept true.
+  and replayed each tick, with the kernels' launch counts kept true;
+  ``Program``, the port of ``jax.jit`` for the other one-card programs
+  (one graph a key of argument shapes).
 """
 
 from .bodies import slice_frame_bodies

@@ -35,13 +35,20 @@ it parallel, in three kernels:
    the mark kernel, one block a tile, walks each visited tile's frames
    in shared memory and writes the tile's mask bytes.
 
+The stream's valid length ``n`` reaches the kernels as an int32 on the
+device, and each computes the chunk's end ``min(base + C, n)`` from
+it, as the JAX scan traces ``n``: one launch sequence, and so one
+captured scan program (``parallel/seqscan.py``), serves every ``n`` of
+a stream length.
+
 Each call to :func:`seq_walk` on a card is two launches (both counted
 in :data:`launches`); each :func:`seq_walk_prepare` one (counted in
-:data:`prepare_launches`).  A walk on a card whose state was not
-prepared for the same chunk raises: nothing falls back to a serial
-walk.  On the CPU, :func:`seq_walk` runs :func:`seq_walk_plain`, which
-needs no map, so :func:`seq_walk_prepare` only records the chunk; the
-plain versions of the three steps (:func:`tile_exits_plain`,
+:data:`prepare_launches`), through ``tick_graph.count_launch``, so a
+replayed scan counts the launches it holds.  A walk on a card whose
+state was not prepared for the same chunk raises: nothing falls back to
+a serial walk.  On the CPU, :func:`seq_walk` runs :func:`seq_walk_plain`,
+which needs no map, so :func:`seq_walk_prepare` only records the chunk;
+the plain versions of the three steps (:func:`tile_exits_plain`,
 :func:`hop_plain`, :func:`mark_plain`) compose into
 :func:`tiled_walk_plain`, which the tests hold to ``_walk``.
 """
@@ -55,6 +62,7 @@ import torch
 
 from ..protocol.consts import MAX_PACKET
 from . import wire_scan
+from .tick_graph import count_launch
 
 #: What this kernel replaces: an XLA while_loop, not a Pallas kernel.
 REPLACES = 'zkstream_tpu/parallel/seqscan.py:41'
@@ -95,7 +103,7 @@ class WalkState:
     #                           first frame (-1 elsewhere); the last slot
     #                           says whether the last call walked
     tile: int                 # bytes a tile
-    prepared: tuple | None = None  # (ext pointer, base, chunk_end, n)
+    prepared: tuple | None = None  # (ext pointer, base)
 
 
 def _tile_shift(tile: int) -> int:
@@ -129,9 +137,9 @@ def load():
         P, LL, I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
         prep, hop, mark = (lib.seq_prepare_launch, lib.seq_hop_launch,
                            lib.seq_mark_launch)
-        prep.argtypes = [P, LL, I, LL, LL, LL, P, P]
-        hop.argtypes = [P, LL, I, LL, LL, LL] + [P] * 7
-        mark.argtypes = [P, LL, I, LL, LL, LL, P, P, P]
+        prep.argtypes = [P, LL, I, LL, P, P, P]
+        hop.argtypes = [P, LL, I, LL] + [P] * 8
+        mark.argtypes = [P, LL, I, LL, P, P, P, P]
         geo = lib.seq_walk_geometry
         geo.argtypes = [I] + [ctypes.POINTER(I)] * 5
         for fn in (prep, hop, mark, geo):
@@ -293,14 +301,16 @@ def tiled_walk_plain(ext, base: int, chunk_end: int, n: int, entry: int,
     return q, mark_plain(ext, base, chunk_end, n, tile_entry, tile), bad
 
 
-def seq_walk_plain(ext, base: int, chunk_end: int, n: int, rcv,
-                   state: WalkState) -> None:
+def seq_walk_plain(ext, base: int, n, rcv, state: WalkState) -> None:
     """One ring step of one chunk, plain: adopt the offered entry
-    ``rcv`` (int32 0-d) and walk, unless the chunk walked already or no
-    entry was offered (``rcv < 0``)."""
+    ``rcv`` (int32 0-d) and walk to ``min(base + C, n)``, unless the
+    chunk walked already or no entry was offered (``rcv < 0``).  ``n``
+    is an int or an int32 0-d tensor."""
     entry = int(rcv)
     if int(state.valid) or entry < 0:
         return
+    n = int(n)
+    chunk_end = min(base + ext.shape[0] - 4, n)
     q, mask, bad = walk_plain(ext, base, chunk_end, n, entry)
     state.valid.fill_(1)
     state.exit.fill_(q)
@@ -308,7 +318,10 @@ def seq_walk_plain(ext, base: int, chunk_end: int, n: int, rcv,
     state.bad.fill_(bad)
 
 
-def _check(ext, base, chunk_end, n, state) -> None:
+def _check(ext, base, n, state) -> None:
+    """Shapes, devices and cursors.  ``n`` is an int (a CPU walk) or an
+    int32 0-d tensor on ``ext``'s device (a card's walk takes only
+    that, and reads it on the device alone)."""
     if ext.dtype != torch.uint8 or ext.dim() != 1 or ext.shape[0] < 5:
         raise ValueError('ext must be uint8 [C + 4] with C >= 1, got %s %s'
                          % (ext.dtype, tuple(ext.shape)))
@@ -319,9 +332,18 @@ def _check(ext, base, chunk_end, n, state) -> None:
               state.tile_entry):
         if t.device != ext.device:
             raise ValueError('the chunk walk\'s tensors must share a device')
-    if not 0 <= base <= 2**31 - 1 or not 0 <= n <= 2**31 - 1 \
-            or not 0 <= chunk_end <= 2**31 - 1 or C + 4 > 2**31 - 1:
-        raise ValueError('cursors must lie in [0, 2^31)')
+    if isinstance(n, torch.Tensor):
+        if n.dtype != torch.int32 or n.numel() != 1 \
+                or n.device != ext.device:
+            raise ValueError('n must be one int32 on ext\'s device')
+    elif ext.device.type != 'cpu':
+        raise ValueError('a walk on a card reads n from the device: pass '
+                         'an int32 0-d tensor')
+    elif not 0 <= n <= 2**31 - 1:
+        raise ValueError('n must lie in [0, 2^31)')
+    if not 0 <= base or base + C + 4 > 2**31 - 1:
+        raise ValueError('cursors must lie in [0, 2^31): base + C + 4 '
+                         'must be below 2^31')
 
 
 def _device(ext) -> None:
@@ -332,51 +354,47 @@ def _device(ext) -> None:
         raise ValueError('the chunk walk needs a contiguous ext')
 
 
-def seq_walk_prepare(ext, base: int, chunk_end: int, n: int,
-                     state: WalkState) -> None:
+def seq_walk_prepare(ext, base: int, n, state: WalkState) -> None:
     """Build the chunk's exit map into ``state.exits`` with the kernel,
-    on the current stream; for a CPU tensor only record the chunk (the
-    CPU walk, :func:`seq_walk_plain`, reads no map).  It does not depend
-    on the entry, so every chunk prepares before the ring;
-    ``chunk_end`` may not pass the chunk."""
-    global prepare_launches
-    _check(ext, base, chunk_end, n, state)
-    C = ext.shape[0] - 4
-    if chunk_end > base + C or base + C + 4 > 2**31 - 1:
-        raise ValueError('the exit map needs chunk_end <= base + C and '
-                         'base + C + 4 < 2^31')
+    on the current stream, for the chunk ``[base, base + C)`` of a
+    stream of ``n`` valid bytes (on a card an int32 0-d tensor on
+    ``ext``'s device, which the kernel reads there); for a CPU tensor
+    only record the chunk (the CPU walk, :func:`seq_walk_plain`, reads
+    no map).  It does not depend on the entry, so every chunk prepares
+    before the ring."""
+    _check(ext, base, n, state)
     if ext.device.type != 'cpu':
         _device(ext)
         load()
         with torch.cuda.device(ext.device):
-            rc = _bound[0](ext.data_ptr(), C, _tile_shift(state.tile), base,
-                           chunk_end, n, state.exits.data_ptr(),
+            rc = _bound[0](ext.data_ptr(), ext.shape[0] - 4,
+                           _tile_shift(state.tile), base, n.data_ptr(),
+                           state.exits.data_ptr(),
                            torch.cuda.current_stream().cuda_stream)
         if rc != 0:
             raise RuntimeError('exit map launch failed: cudaError %d'
                                % (rc,))
-        prepare_launches += 1
-    state.prepared = (ext.data_ptr(), base, chunk_end, n)
+        count_launch(__name__, 'prepare_launches')
+    state.prepared = (ext.data_ptr(), base)
 
 
-def seq_walk(ext, base: int, chunk_end: int, n: int, rcv,
-             state: WalkState) -> None:
-    """One ring step of one chunk: a CPU tensor runs
+def seq_walk(ext, base: int, n, rcv, state: WalkState) -> None:
+    """One ring step of one chunk of a stream of ``n`` valid bytes (as
+    for :func:`seq_walk_prepare`): a CPU tensor runs
     :func:`seq_walk_plain`; a CUDA tensor launches the hop and the mark
-    kernels on the current stream, which read ``rcv`` and
+    kernels on the current stream, which read ``n``, ``rcv`` and
     ``state.valid`` on the device and update ``state`` there.  On a card
     the state must have been prepared (:func:`seq_walk_prepare`) for
-    this ``ext``, ``base``, ``chunk_end`` and ``n``."""
-    global launches
-    _check(ext, base, chunk_end, n, state)
+    this ``ext`` and ``base``."""
+    _check(ext, base, n, state)
     if rcv.dtype != torch.int32 or rcv.numel() != 1 \
             or rcv.device != ext.device:
         raise ValueError('rcv must be one int32 cursor on ext\'s device')
     if ext.device.type == 'cpu':
-        seq_walk_plain(ext, base, chunk_end, n, rcv, state)
+        seq_walk_plain(ext, base, n, rcv, state)
         return
     _device(ext)
-    if state.prepared != (ext.data_ptr(), base, chunk_end, n):
+    if state.prepared != (ext.data_ptr(), base):
         raise RuntimeError('the chunk walk\'s state was not prepared for '
                            'this chunk: call seq_walk_prepare first')
     load()
@@ -384,20 +402,20 @@ def seq_walk(ext, base: int, chunk_end: int, n: int, rcv,
     C, shift = ext.shape[0] - 4, _tile_shift(state.tile)
     with torch.cuda.device(ext.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = hop(ext.data_ptr(), C, shift, base, chunk_end, n,
+        rc = hop(ext.data_ptr(), C, shift, base, n.data_ptr(),
                  state.exits.data_ptr(), rcv.data_ptr(),
                  state.valid.data_ptr(), state.exit.data_ptr(),
                  state.bad.data_ptr(), state.tile_entry.data_ptr(), stream)
         if rc != 0:
             raise RuntimeError('chunk walk hop launch failed: cudaError %d'
                                % (rc,))
-        launches += 1
-        rc = mark(ext.data_ptr(), C, shift, base, chunk_end, n,
+        count_launch(__name__)
+        rc = mark(ext.data_ptr(), C, shift, base, n.data_ptr(),
                   state.tile_entry.data_ptr(), state.mask.data_ptr(), stream)
         if rc != 0:
             raise RuntimeError('chunk walk mark launch failed: cudaError %d'
                                % (rc,))
-        launches += 1
+        count_launch(__name__)
 
 
 def bound_bytes(C: int, frames: int) -> int:

@@ -14,6 +14,10 @@ frame cursor across shard boundaries.  The port of
 - :mod:`sharded` — dp-sharded batched decode + the reductions.
 - :mod:`seqscan` — byte-axis sequence-parallel frame scan (the cursor
   ring, its chunk walk in ops/seq_walk.py).
+
+On a mesh with no process group whose shards share one device, each
+sharded step, roundtrip and scan is one program (ops/tick_graph.py:
+on a card, one CUDA graph replay a call), as the JAX package jits it.
 - :mod:`multihost` — the process group and per-process placement.
 - :mod:`fleet` — :class:`MeshFleetIngest` and
   :class:`MultihostFleetIngest`, the runtime consumers.

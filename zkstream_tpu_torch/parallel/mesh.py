@@ -60,6 +60,13 @@ class Mesh:
         """One device per ``sp`` shard (the first ``dp`` row)."""
         return [self.devices[0, j] for j in range(self.shape['sp'])]
 
+    @property
+    def one_device(self) -> bool:
+        """No process group, and every shard on one device: the mesh's
+        steps are then one program each (``ops/tick_graph.Program``, one
+        CUDA graph replay a call on a card)."""
+        return self.group is None and len(set(self.devices.flat)) == 1
+
     def has_cuda(self) -> bool:
         return any(d.type == 'cuda' for d in self.devices.flat)
 

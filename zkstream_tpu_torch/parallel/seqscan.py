@@ -28,7 +28,11 @@ boundaries around a ring, as the JAX package's ``ppermute`` ring does:
 
 The ``sp`` axis stays inside one process (parallel/mesh.py), so the
 ring's hops are copies between this process's devices — none at all
-when the shards share one card.
+when the shards share one card.  There the whole scan is one program
+(``ops/tick_graph.Program``): captured once per ``(N, p, tile)`` into a
+CUDA graph and replayed, as the JAX package jits it once per ``N`` with
+``n`` traced.  ``n`` is the program's int32 input on the card, which the
+chunk-walk kernels read there, so one graph serves every ``n``.
 """
 
 from __future__ import annotations
@@ -36,6 +40,7 @@ from __future__ import annotations
 import torch
 
 from ..ops import seq_walk as SW
+from ..ops.tick_graph import Program
 from .mesh import Mesh
 
 
@@ -48,9 +53,50 @@ def seq_parallel_frame_scan(mesh: Mesh, tile: int = SW.DEFAULT_TILE):
     bytes or more), ``n`` the valid length; ``is_start`` is bool ``[N]``
     marking each complete frame's prefix offset, ``total_frames`` an
     int32 and ``bad`` a bool scalar, all on the first sp device.
+
+    On a mesh with no process group whose shards share one device the
+    scan is one :class:`~..ops.tick_graph.Program` a buffer shape (on a
+    card, one CUDA graph replay a call; ``scan.graphed`` is True): the
+    call stages ``buf`` and ``n`` into the program's inputs and returns
+    copies of its outputs, which later calls leave alone.  Otherwise it
+    runs its ring eagerly.  ``scan.program`` is the program.
     """
     p = mesh.shape['sp']
     devs = mesh.sp_devices
+
+    def local(buf, n):
+        # n: the valid length, an int32 scalar on the first sp device,
+        # read by the walks on their devices alone (no host read)
+        C = buf.shape[0] // p
+        chunks = [buf[i * C:(i + 1) * C].to(d) for i, d in enumerate(devs)]
+        # the halo: shard i reads the first 4 bytes of shard i + 1
+        ext = [torch.cat([chunks[i], chunks[(i + 1) % p][:4].to(devs[i])])
+               for i in range(p)]
+        ns = [n.to(d) for d in devs]
+        base = [i * C for i in range(p)]
+        state = [SW.new_state(C, d, tile) for d in devs]
+        for i in range(p):
+            SW.seq_walk_prepare(ext[i], base[i], ns[i], state[i])
+        # shard 0 learns its entry (cursor 0) at the start
+        SW.seq_walk(ext[0], base[0], ns[0],
+                    torch.zeros((), dtype=torch.int32, device=devs[0]),
+                    state[0])
+        for _ in range(max(p - 1, 1)):
+            # every shard offers its exit once it has walked, else -1;
+            # all offers are taken before any shard adopts
+            snd = [torch.where(s.valid != 0, s.exit, -1) for s in state]
+            for i in range(p):
+                SW.seq_walk(ext[i], base[i], ns[i],
+                            snd[(i - 1) % p].to(devs[i]), state[i])
+        first = devs[0]
+        mask = torch.cat([s.mask.to(first) for s in state])
+        total = torch.stack([s.mask.sum(dtype=torch.int32).to(first)
+                             for s in state]).sum(dtype=torch.int32)
+        bad = torch.stack([s.bad.to(first) for s in state]).any()
+        return mask, total, bad
+
+    prog = Program(local, devs[0], graphed=mesh.one_device,
+                   static=('seq_parallel_frame_scan', p, tile))
 
     def scan(buf, n):
         N = buf.shape[0]
@@ -60,32 +106,7 @@ def seq_parallel_frame_scan(mesh: Mesh, tile: int = SW.DEFAULT_TILE):
                              'chunks of 4 bytes or more' % (N, p))
         if not 0 <= n <= 2**31 - 1:
             raise ValueError('n must lie in [0, 2^31)')
-        C = N // p
-        chunks = [buf[i * C:(i + 1) * C].to(d) for i, d in enumerate(devs)]
-        # the halo: shard i reads the first 4 bytes of shard i + 1
-        ext = [torch.cat([chunks[i], chunks[(i + 1) % p][:4].to(devs[i])])
-               for i in range(p)]
-        base = [i * C for i in range(p)]
-        end = [min(b + C, n) for b in base]
-        state = [SW.new_state(C, d, tile) for d in devs]
-        for i in range(p):
-            SW.seq_walk_prepare(ext[i], base[i], end[i], n, state[i])
-        # shard 0 learns its entry (cursor 0) at the start
-        SW.seq_walk(ext[0], base[0], end[0], n,
-                    torch.zeros((), dtype=torch.int32, device=devs[0]),
-                    state[0])
-        for _ in range(max(p - 1, 1)):
-            # every shard offers its exit once it has walked, else -1;
-            # all offers are taken before any shard adopts
-            snd = [torch.where(s.valid != 0, s.exit, -1) for s in state]
-            for i in range(p):
-                SW.seq_walk(ext[i], base[i], end[i], n,
-                            snd[(i - 1) % p].to(devs[i]), state[i])
-        first = devs[0]
-        mask = torch.cat([s.mask.to(first) for s in state])
-        total = torch.stack([s.mask.sum(dtype=torch.int32).to(first)
-                             for s in state]).sum(dtype=torch.int32)
-        bad = torch.stack([s.bad.to(first) for s in state]).any()
-        return mask, total, bad
+        return prog(buf, n)
 
+    scan.program, scan.graphed = prog, prog.graphed
     return scan

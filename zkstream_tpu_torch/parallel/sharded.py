@@ -13,6 +13,13 @@ The JAX local step is the jnp ``wire_pipeline_step``; here it is
 :func:`~zkstream_tpu_torch.ops.pipeline.wire_pipeline_step_auto`,
 because the port's plain version serves CPU tensors only: a CUDA shard
 launches kernel K1.  The semantics are the same; the code path differs.
+
+On a mesh with no process group whose shards all sit on one device,
+each built step is one program (``ops/tick_graph.Program``), as the JAX
+package jits its ``shard_map``: on a card every shard's K1, the
+reductions and the concatenations are captured once per input shape into
+a CUDA graph, and a call stages its arguments and replays it.  A mesh
+with a group or over several devices runs the chain eagerly.
 """
 
 from __future__ import annotations
@@ -24,6 +31,7 @@ import torch
 from ..ops.bytesops import u64pair_reduce_max
 from ..ops.encode import build_reply_streams
 from ..ops.pipeline import WireStats, wire_pipeline_step_auto
+from ..ops.tick_graph import Program
 from .mesh import Mesh
 
 
@@ -98,9 +106,15 @@ def sharded_wire_step(mesh: Mesh, max_frames: int = 32):
     :func:`~.multihost.host_local_wire_batch`.  Per-stream outputs come
     back per shard, concatenated in row order on the first shard's
     device; the global stats are scalars there, equal on every process.
+
+    On a one-device mesh with no group (``step.graphed``) the step is
+    one :class:`~..ops.tick_graph.Program` an input shape (one CUDA
+    graph replay a call on a card): a call stages ``buf`` and ``lens``
+    into the program's inputs and returns copies of its outputs, which
+    later calls leave alone.  ``step.program`` is the program.
     """
 
-    def step(buf, lens):
+    def local(buf, lens):
         per = [wire_pipeline_step_auto(b, n, max_frames=max_frames)
                for b, n in zip(_shards(mesh, buf), _shards(mesh, lens))]
         g = fleet_globals(mesh, per)
@@ -108,7 +122,19 @@ def sharded_wire_step(mesh: Mesh, max_frames: int = 32):
             total_frames=g[0], total_notifications=g[2], total_errors=g[4],
             max_zxid_hi=g[5], max_zxid_lo=g[6])
 
-    return step
+    return _program(mesh, local, ('sharded_wire_step', max_frames))
+
+
+def _program(mesh: Mesh, fn, static: tuple):
+    """``fn`` as the mesh's program, exposed as a plain function with
+    ``program`` and ``graphed`` attributes."""
+    prog = Program(fn, mesh.first, graphed=mesh.one_device, static=static)
+
+    def call(*args):
+        return prog(*args)
+
+    call.program, call.graphed = prog, prog.graphed
+    return call
 
 
 def sharded_wire_roundtrip(mesh: Mesh, out_len: int,
@@ -125,9 +151,12 @@ def sharded_wire_roundtrip(mesh: Mesh, out_len: int,
     ``out_len`` has no safe default: frames past it are dropped by the
     encoder, so the caller sizes it for the largest row.  ``max_frames``
     defaults to the plane width F, which cannot under-decode.
+
+    A one-device mesh with no group makes the loop one program, as
+    :func:`sharded_wire_step` does.
     """
 
-    def loop(xid, zhi, zlo, err, sizes):
+    def local(xid, zhi, zlo, err, sizes):
         F = max_frames if max_frames is not None else sizes.shape[1]
         per = []
         for planes in zip(*(_shards(mesh, p)
@@ -137,4 +166,5 @@ def sharded_wire_roundtrip(mesh: Mesh, out_len: int,
         total = mesh.psum([s.n_frames.sum(dtype=torch.int32) for s in per])
         return _cat_stats(mesh, per), total
 
-    return loop
+    return _program(mesh, local,
+                    ('sharded_wire_roundtrip', out_len, max_frames))

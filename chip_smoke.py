@@ -272,6 +272,19 @@ Phases (any failure exits non-zero; nothing is caught):
    device ms (``torch.profiler``), the time on the card (CUDA events
    around calls back to back) and the host's time a call, and a whole
    call (staging, replay, result copies) and its staging alone.
+18. A bucket that fails to warm.  64 corpus streams (the first two
+   frames of each) through one ``FleetIngest(device='cuda',
+   warm='block', bypass_bytes=0)`` over two shape buckets, in host and
+   in device bodies: bucket A (16 streams) fails its capture for real
+   (a tensor made from a host list in its step, a pageable copy), is
+   logged once at error level and latches onto the scalar drain (both
+   its ticks in ``ticks_scalar``, no K1 or K2 launch, no retry); bucket
+   B (48 streams) then captures on the same ingest and replays, one K1
+   or K2 launch a tick.  Every packet of both equals the pure-Python
+   scalar drain's.  Printed: A's failed warm, B's warm, a scalar-drained
+   tick of A and a replayed tick of B on the host clock, and B's replay
+   on the card.  The main-path phases (4, 7, 10-16) fail if a warm
+   failed in them.
 
 What still runs eagerly: a mesh over several cards, phase 11's
 ``MultihostFleetIngest`` (a process group), and phases 2-6's direct
@@ -864,7 +877,10 @@ async def _live_workload(c, root: str, ZKError, CreateFlag) -> list:
         root + '/q-', b'',
         flags=CreateFlag.SEQUENTIAL | CreateFlag.EPHEMERAL)))
     await c.sync(root + '/w')
-    obs.append(('ping', (await c.ping()) >= 0))
+    # a ping that joins the session's keep-alive ping in flight resolves
+    # with no latency of its own (both packages' connection.ping)
+    latency = await c.ping()
+    obs.append(('ping', latency is None or latency >= 0))
     await asyncio.wait_for(changed, LIVE_TIMEOUT)
     obs.append(('events', events[:3]))
     return obs
@@ -2385,6 +2401,206 @@ def _program_phase(PAR, bench, W, K2, SW, dev, smi: str, buf, lens,
     return out
 
 
+# -- phase 18: a bucket that fails to warm ---------------------------------
+
+#: Phase 18's streams: bucket A takes the first LATCH_A of LATCH_STREAMS
+#: corpus streams (the first two frames of each), bucket B the rest.
+LATCH_STREAMS = 64
+LATCH_A = 16
+LATCH_TICKS = 20               # replays / scalar drains timed a mode
+
+
+class _WarmErrors:
+    """The port's error-level records that name a failed warm, while
+    installed."""
+
+    def __enter__(self):
+        import logging
+
+        self.records = []
+        self._handler = logging.Handler(logging.ERROR)
+        self._handler.emit = self.records.append
+        self._logger = logging.getLogger('zkstream_tpu_torch')
+        self._logger.addHandler(self._handler)
+        return self
+
+    def __exit__(self, *exc):
+        self._logger.removeHandler(self._handler)
+
+    def failed(self) -> list:
+        return [r.getMessage() for r in self.records
+                if 'failed to warm' in r.getMessage()]
+
+
+class _NoFailedWarm:
+    """A main-path phase run inside the block fails if a warm of any
+    port ingest failed there (its bucket latched onto the scalar drain,
+    or a kernel's error kept for its ticks to raise).  The hook wraps
+    the class's own ``_try_warm``, so it sees every ingest, mesh ingests
+    and those the phase builds deep inside included, and holds none of
+    them."""
+
+    def __init__(self, what: str):
+        self.what = what
+
+    def __enter__(self):
+        from zkstream_tpu_torch.io.ingest import FleetIngest
+
+        try_warm = self._try_warm = FleetIngest._try_warm
+        failed = self.failed = []
+
+        def noted(ing, key):
+            out = try_warm(ing, key)
+            if out is None or isinstance(out, BaseException):
+                failed.append((type(ing).__name__, key, repr(out)))
+            return out
+        FleetIngest._try_warm = noted
+        return self
+
+    def __exit__(self, exc_type, *_exc):
+        from zkstream_tpu_torch.io.ingest import FleetIngest
+
+        FleetIngest._try_warm = self._try_warm
+        if exc_type is None and self.failed:
+            raise AssertionError('%s: %d warms failed (ingest, bucket, '
+                                 'outcome): %s' % (
+                                     self.what, len(self.failed),
+                                     self.failed))
+
+
+def _latch_run(FleetIngest, W, K2, PacketCodec, mode: str, rows, xmaps,
+               smi: str) -> dict:
+    """One phase-18 run in ``mode`` bodies: bucket A's capture fails (a
+    tensor made from a host list in its step, a pageable copy), then
+    bucket B warms on the same ingest; every packet is held to the
+    scalar drain's."""
+    import torch
+
+    class Unsafe(FleetIngest):
+        """The tick program, with a pageable copy in bucket ``bad``'s."""
+        bad = None
+
+        def _step(self, buf, lens):
+            ints, byts = super()._step(buf, lens)
+            if tuple(buf.shape) == self.bad:
+                ints = ints + torch.tensor([0], dtype=torch.int32,
+                                           device=buf.device)
+            return ints, byts
+
+    L = max(len(r) for r in rows)
+    ing = Unsafe(device='cuda', body_mode=mode, bypass_bytes=0,
+                 warm='block', max_frames=16,
+                 min_len=1 << (L - 1).bit_length())
+    mod = K2 if mode == 'device' else W
+    warms: dict = {}
+    try_warm = ing._try_warm
+
+    def timed_warm(key):
+        t = time.perf_counter()
+        out = try_warm(key)
+        warms.setdefault(key, []).append((time.perf_counter() - t) * 1e3)
+        return out
+
+    ing._try_warm = timed_warm
+    key_a = ing._bucket(LATCH_A, L)
+    key_b = ing._bucket(len(rows) - LATCH_A, L)
+    ing.bad = key_a
+    halves = [[r[:len(r) // 2], r[len(r) // 2:], b''] for r in rows]
+    wants = [_scalar_drain(PacketCodec, ch, m)
+             for ch, m in zip(halves, xmaps)]
+    conns = [StandIn(_codec(PacketCodec, m, True)) for m in xmaps]
+    out = {'buckets': {'A': list(key_a), 'B': list(key_b)}}
+    torch.cuda.synchronize()
+    for name, sl, key in (('A', slice(0, LATCH_A), key_a),
+                          ('B', slice(LATCH_A, None), key_b)):
+        n0, s0 = ing.ticks, ing.ticks_scalar
+        W.launches = K2.launches = 0
+        with _WarmErrors() as logged:
+            asyncio.run(_serve(ing, conns[sl], halves[sl]))
+        torch.cuda.synchronize()
+        out[name] = {'ticks': ing.ticks - n0,
+                     'ticks_scalar': ing.ticks_scalar - s0,
+                     'k1': W.launches, 'k2': K2.launches,
+                     'warm_ms': warms[key],
+                     'errors_logged': logged.failed()}
+        for i, (c, want) in enumerate(zip(conns[sl], wants[sl])):
+            if c.got != want[0] or getattr(c.err, 'code', None) != want[1]:
+                raise AssertionError(
+                    'phase 18 %s bodies, bucket %s: connection %d got %d '
+                    'packets, the scalar drain %d' % (
+                        mode, name, i, len(c.got), len(want[0])))
+    a, b = out['A'], out['B']
+    if not (ing._exec.get(key_a, 0) is None and a['ticks'] == 0
+            and a['ticks_scalar'] == 2 and a['k1'] == a['k2'] == 0
+            and len(a['warm_ms']) == 1 and len(a['errors_logged']) == 1
+            and repr(key_a) in a['errors_logged'][0]):
+        raise AssertionError('phase 18 %s bodies: bucket A did not latch '
+                             'once onto the scalar drain: %s' % (mode, a))
+    bk = ing._exec[key_b]
+    launched = (b['k1'], b['k2'])
+    if not (bk is not None and bk.graph is not None
+            and bk.graph.launches == {mod.__name__: 1}
+            and b['ticks'] == 2 and b['ticks_scalar'] == 0
+            and launched == ((0, 2) if mode == 'device' else (2, 0))
+            and not b['errors_logged'] and len(b['warm_ms']) == 1):
+        raise AssertionError('phase 18 %s bodies: bucket B after the '
+                             'failed capture: %s, graph %s' % (
+                                 mode, b, bk and bk.graph and
+                                 bk.graph.launches))
+
+    # then, timed: ticks of each stream's first half again (the packets
+    # thrown away), scalar-drained in A and replayed in B; the mean of
+    # the ingest's own tick times (tick_hist)
+    async def timed(idx):
+        h = ing.tick_hist
+        s0, c0 = h.sum(), h.count()
+        for _ in range(LATCH_TICKS):
+            for i in idx:
+                conns[i].codec.xid_map.update(xmaps[i])
+                ing.feed(conns[i], halves[i][0])
+            ing._tick()
+            for i in idx:
+                ing._slots[id(conns[i])][1].clear()
+                conns[i].got, conns[i].err = [], None
+        if h.count() - c0 != LATCH_TICKS:
+            raise AssertionError('phase 18 %s bodies: %d of %d timed ticks '
+                                 'routed work' % (mode, h.count() - c0,
+                                                  LATCH_TICKS))
+        return (h.sum() - s0) / LATCH_TICKS
+
+    out['A']['drain_ms'] = asyncio.run(timed(range(LATCH_A)))
+    out['B']['replay_tick_ms'] = asyncio.run(
+        timed(range(LATCH_A, len(rows))))
+    out['B']['replay_ms'] = _time_ms(torch, bk.graph.replay, LATCH_TICKS)
+    _log('# phase 18 (%s bodies) on %s: bucket A %s failed its capture in '
+         '%.3f ms, logged once (%r), latched: %d ticks all scalar, K1 %d, '
+         'K2 %d, every packet == the scalar drain; bucket B %s captured '
+         'after it on the same ingest (warm %.3f ms): %d ticks = %d %s '
+         'launches, one replay a tick; a scalar-drained tick of A %.3f ms '
+         '(mean of %d), a replayed tick of B %.3f ms (mean of %d), '
+         'its replay %.4f ms on the card' % (
+             mode, smi, key_a, a['warm_ms'][0], a['errors_logged'][0],
+             a['ticks_scalar'], a['k1'], a['k2'], key_b, b['warm_ms'][0],
+             b['ticks'], max(launched), 'K2' if mode == 'device' else 'K1',
+             a['drain_ms'], LATCH_TICKS, b['replay_tick_ms'], LATCH_TICKS,
+             b['replay_ms']))
+    return out
+
+
+def _latch_phase(FleetIngest, W, K2, PacketCodec, streams, xmaps,
+                 first_frames: int, smi: str) -> dict:
+    """Phase 18: a bucket that fails to warm latches onto the scalar
+    drain, and the next bucket of the same ingest still captures and
+    replays, in both body modes."""
+    t0 = time.perf_counter()
+    rows = [s[:first_frames] for s in streams[:LATCH_STREAMS]]
+    out = {mode: _latch_run(FleetIngest, W, K2, PacketCodec, mode, rows,
+                            xmaps[:LATCH_STREAMS], smi)
+           for mode in ('host', 'device')}
+    _log('# phase 18 on %s: %.2f s' % (smi, time.perf_counter() - t0))
+    return out
+
+
 # -- phase 9: the sequence-parallel scan and its chunk walk -------------
 
 SEQ_TILES = (1 << 12, 1 << 13, 1 << 14, 1 << 15, 1 << 16)  # the sweep
@@ -2915,7 +3131,8 @@ def main() -> int:
              k1b_bound_ms / k1b_ms, k1b_bound_ms / k1b_dev, FLOOR_ROWS,
              floor_ms, floor_ms * 1e3 / FRAMES))
 
-    # -- 4. the main path: live fleet ingest --
+    # -- 4. the main path: live fleet ingest.  Each main-path phase
+    # fails if a warm failed in it (_NoFailedWarm) --
     rng = np.random.RandomState(SEED + 1)
     chunks = []
     for s in streams:
@@ -2925,12 +3142,13 @@ def main() -> int:
              for ch, m in zip(chunks, xmaps)]
     del db, dl, da, dal, dr, drl, got, want, st
     host_runs = {}
-    for tier, use_native, freeze in (
-            ('Python codecs', False, False), ('C codecs', True, False),
-            ('C codecs, setup heap frozen', True, True)):
-        host_runs[tier] = _host_run(
-            FleetIngest, W, K2, PacketCodec, xmaps, chunks, wants,
-            use_native, freeze, tier, smi)
+    with _NoFailedWarm('phase 4'):
+        for tier, use_native, freeze in (
+                ('Python codecs', False, False), ('C codecs', True, False),
+                ('C codecs, setup heap frozen', True, True)):
+            host_runs[tier] = _host_run(
+                FleetIngest, W, K2, PacketCodec, xmaps, chunks, wants,
+                use_native, freeze, tier, smi)
     py_run, c_run = host_runs['Python codecs'], host_runs['C codecs']
     launches = c_run['launches']
     _log('# phase 4 side by side on %s: mean tick %.3f ms (Python codecs) '
@@ -3102,7 +3320,8 @@ def main() -> int:
     _timed(ing, dstep_s)
     W.launches = K2.launches = 0
     t0 = time.perf_counter()
-    asyncio.run(_serve(ing, conns, chunks))
+    with _NoFailedWarm('phase 7'):
+        asyncio.run(_serve(ing, conns, chunks))
     dwall = time.perf_counter() - t0
     k2_launches, k1_dev = K2.launches, W.launches
     if not (ing.ticks > 0 and k2_launches == ing.ticks and k1_dev == 0
@@ -3197,13 +3416,15 @@ def main() -> int:
     del stream
 
     # -- 10. MeshFleetIngest, four shards on the card --
-    mesh_runs = {
-        mode: _mesh_run(PAR, W, K2, PacketCodec, xmaps, chunks, wants,
-                        mesh4, mode, smi) for mode in ('host', 'device')}
+    with _NoFailedWarm('phase 10'):
+        mesh_runs = {
+            mode: _mesh_run(PAR, W, K2, PacketCodec, xmaps, chunks, wants,
+                            mesh4, mode, smi) for mode in ('host', 'device')}
 
     # -- 11. MultihostFleetIngest over a one-rank NCCL group --
-    mh = _multihost_run(PAR, W, K2, PacketCodec, xmaps, chunks, wants, dev,
-                        smi)
+    with _NoFailedWarm('phase 11'):
+        mh = _multihost_run(PAR, W, K2, PacketCodec, xmaps, chunks, wants,
+                            dev, smi)
 
     # -- 12. live clients against the port's server.  The heap the
     # earlier phases leave (the corpus, its xid maps, the scalar drain's
@@ -3213,7 +3434,8 @@ def main() -> int:
     gc.collect()
     gc.freeze()
     try:
-        live = _live_phase(W, K2, smi)
+        with _NoFailedWarm('phase 12'):
+            live = _live_phase(W, K2, smi)
     finally:
         gc.unfreeze()
     t0 = time.perf_counter()
@@ -3232,24 +3454,28 @@ def main() -> int:
     gc.collect()
     gc.freeze()
     try:
-        ens = _ensemble_phase(W, K2, smi)
+        with _NoFailedWarm('phase 13'):
+            ens = _ensemble_phase(W, K2, smi)
     finally:
         gc.unfreeze()
 
     # -- 14. the port's bench and the C load generator --
-    bench14 = _bench_phase(W, K2, smi)
+    with _NoFailedWarm('phase 14'):
+        bench14 = _bench_phase(W, K2, smi)
 
     # -- 15. the port's measuring tools --
     gc.collect()
     gc.freeze()
     try:
-        tools15 = _tools_phase(W, K2, smi)
+        with _NoFailedWarm('phase 15'):
+            tools15 = _tools_phase(W, K2, smi)
     finally:
         gc.unfreeze()
 
     # -- 16. the tick program as a CUDA graph --
-    graphs16 = _graph_phase(PAR, W, K2, FleetIngest, dev, smi, streams,
-                            slots[2]['off'])
+    with _NoFailedWarm('phase 16'):
+        graphs16 = _graph_phase(PAR, W, K2, FleetIngest, dev, smi, streams,
+                                slots[2]['off'])
 
     # -- 17. the JAX package's other one-card programs as CUDA graphs --
     from zkstream_tpu_torch import bench
@@ -3257,6 +3483,10 @@ def main() -> int:
     programs17 = _program_phase(PAR, bench, W, K2, SW, dev, smi, buf_np,
                                 lens_np, stream)
     del stream
+
+    # -- 18. a bucket that fails to warm latches onto the scalar drain --
+    latch18 = _latch_phase(FleetIngest, W, K2, PacketCodec, streams, xmaps,
+                           slots[2]['off'], smi)
 
     # -- report --
     seq_t = seq9['tiles'][SW.DEFAULT_TILE]
@@ -3301,7 +3531,10 @@ def main() -> int:
             'phase 14 client-ops cells, FleetIngest host bodies':
                 bench14['client_ops']['k1'],
             'phase 15 sweep_crossover ingest and ingest-auto cells, '
-            'diag_ingest': tools15['k1']},
+            'diag_ingest': tools15['k1'],
+            'phase 18 bucket B after a failed capture, host bodies':
+                latch18['host']['B']['k1']},
+        'latched_bucket': latch18['host'],
     }, {
         'name': 'K2 full_scan (K1 + GET_DATA body words)',
         'route': 'cuda',
@@ -3334,7 +3567,10 @@ def main() -> int:
                 ens['runs']['device']['k2'],
             'phase 14 bench_tensor full-decode candidates':
                 bench14['flagship']['k2'],
-            'phase 15 sweep_crossover ingest-py-dev cells': tools15['k2']},
+            'phase 15 sweep_crossover ingest-py-dev cells': tools15['k2'],
+            'phase 18 bucket B after a failed capture, device bodies':
+                latch18['device']['B']['k2']},
+        'latched_bucket': latch18['device'],
     }, {
         'name': 'seq_walk_prepare (the chunk walk\'s tile exit map)',
         'route': 'cuda',

@@ -733,59 +733,6 @@ def test_ensemble_leader_kill_through_kernel_on_card(cuda_device):
     assert (TW.launches - k1, TK2.launches - k2) == (ing.ticks, 0)
 
 
-@pytest.mark.cuda
-def test_failed_capture_raises_on_its_tick(cuda_device):
-    """A bucket whose capture fails (a tensor made from a host list in
-    the step: a pageable copy, which capture refuses) is a warm failure:
-    the tick that needs it raises, no packet is delivered, no launch is
-    counted and nothing runs the eager chain in the graph's place.  (Last
-    in the file: the capture error is left behind on its stream.)"""
-    import asyncio
-
-    from zkstream_tpu_torch.io.ingest import FleetIngest
-    from zkstream_tpu_torch.protocol.framing import PacketCodec
-
-    class Unsafe(FleetIngest):
-        def _step(self, buf, lens):
-            ints, byts = super()._step(buf, lens)
-            return ints + torch.tensor([0], dtype=torch.int32,
-                                       device=buf.device), byts
-
-    class Conn:
-        def __init__(self, xid_map):
-            self.codec = PacketCodec(use_native=False)
-            self.codec.handshaking = False
-            self.codec.xid_map.update(xid_map)
-            self.got = []
-
-        def is_in_state(self, state):
-            return state == 'connected'
-
-        def emit(self, _event, pkts, err):
-            self.got.append((pkts, err))
-
-    buf, _lens, _slots, maps = corpus.fleet(B=4, seed=7, frames=16)
-    ing = Unsafe(device='cuda', body_mode='host', max_frames=16,
-                 bypass_bytes=0, warm='block')
-    conns = [Conn(m) for m in maps]
-
-    async def tick():
-        for c, row in zip(conns, buf):
-            ing.register(c)
-            ing.feed(c, row.tobytes())
-        n0 = TW.launches
-        with pytest.raises(RuntimeError, match='failed to warm'):
-            ing._tick_impl()
-        assert TW.launches == n0
-        with pytest.raises(RuntimeError, match='failed to warm'):
-            ing._tick_impl()
-
-    asyncio.run(tick())
-    assert all(c.got == [] for c in conns) and ing.ticks == 0
-    assert len(ing._exec) == 1 and all(
-        isinstance(v, BaseException) for v in ing._exec.values())
-
-
 def _program_calls(kind, dev):
     """A program on ``dev`` (``kind``: the sharded step at dp=1 or 4, the
     roundtrip at dp=4, the scan at sp=1 or 4) and three calls' arguments
@@ -870,3 +817,96 @@ def test_program_replays_equal_eager_chain_on_card(cuda_device, kind):
     for got, copy in kept:
         for a, b in zip(_leaves(got), copy):
             assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_failed_capture_latches_bucket_to_scalar(cuda_device, caplog):
+    """A bucket whose capture fails (a tensor made from a host list in
+    the step: a pageable copy, which capture refuses) is a warm failure,
+    as the reference's failed compile: logged once at error level and
+    latched onto the scalar drain, so its ticks count in
+    ``ticks_scalar``, launch no K1 and deliver every reply the scalar
+    codec decodes.  A second bucket of the same ingest then captures on
+    a fresh side stream and pool and replays, one K1 a tick.  (Last in
+    the file: the failed capture's stream is left as the error left
+    it.)"""
+    import asyncio
+
+    from zkstream_tpu_torch.io.ingest import FleetIngest
+    from zkstream_tpu_torch.protocol.framing import PacketCodec
+
+    class Unsafe(FleetIngest):
+        bad_L = None
+
+        def _step(self, buf, lens):
+            ints, byts = super()._step(buf, lens)
+            if buf.shape[1] == self.bad_L:
+                ints = ints + torch.tensor([0], dtype=torch.int32,
+                                           device=buf.device)
+            return ints, byts
+
+    def codec(xid_map):
+        c = PacketCodec(use_native=False)
+        c.handshaking = False
+        c.xid_map.update(xid_map)
+        return c
+
+    class Conn:
+        def __init__(self, xid_map):
+            self.codec = codec(xid_map)
+            self.got = []
+
+        def is_in_state(self, state):
+            return state == 'connected'
+
+        def emit(self, _event, pkts, err):
+            assert err is None
+            self.got += pkts
+
+    a_buf, a_lens, _slots, a_maps = corpus.fleet(B=4, seed=7, frames=16)
+    b_buf, b_lens, _slots, b_maps = corpus.fleet(B=4, seed=8, frames=32)
+    # min_len: both of A's ticks (each half of its streams) take A's
+    # bucket, and B's whole streams a larger one
+    ing = Unsafe(device='cuda', body_mode='host', max_frames=32,
+                 bypass_bytes=0, warm='block', min_len=4096)
+    key_a = ing._bucket(4, int(a_lens.max()))
+    key_b = ing._bucket(4, int(b_lens.max()))
+    assert key_a != key_b
+    ing.bad_L = key_a[1]
+    chunks_a = [(r[:n // 2].tobytes(), r[n // 2:n].tobytes())
+                for r, n in zip(a_buf, a_lens)]
+    chunks_b = [(r[:n].tobytes(),) for r, n in zip(b_buf, b_lens)]
+    conns_a = [Conn(m) for m in a_maps]
+    conns_b = [Conn(m) for m in b_maps]
+
+    async def serve(conns, chunks):
+        for c in conns:
+            ing.register(c)
+        for i in range(len(chunks[0])):
+            for c, ch in zip(conns, chunks):
+                ing.feed(c, ch[i])
+            await asyncio.sleep(0)
+            await asyncio.sleep(0)
+
+    n0 = TW.launches
+    with caplog.at_level('ERROR', logger='zkstream_tpu_torch'):
+        asyncio.run(serve(conns_a, chunks_a))
+    torch.cuda.synchronize()
+    assert TW.launches == n0
+    assert ing.ticks == 0 and ing.ticks_scalar == 2
+    assert ing._exec == {key_a: None}
+    errors = [r for r in caplog.records if 'failed to warm' in r.message]
+    assert len(errors) == 1 and repr(key_a) in errors[0].message
+    for c, m, ch in zip(conns_a, a_maps, chunks_a):
+        want = codec(m)
+        assert c.got == [p for x in ch for p in want.decode(x)]
+
+    asyncio.run(serve(conns_b, chunks_b))
+    torch.cuda.synchronize()
+    bk = ing._exec[key_b]
+    assert bk.graph is not None and bk.graph.launches == {TW.__name__: 1}
+    assert ing.ticks == 1 and ing.ticks_scalar == 2
+    assert TW.launches == n0 + 1
+    for c, m, ch in zip(conns_b, b_maps, chunks_b):
+        want = codec(m)
+        assert c.got == [p for x in ch for p in want.decode(x)]

@@ -226,9 +226,10 @@ def test_launches_recorded_apart_per_thread():
 
 
 class _Conn:
-    def __init__(self):
+    def __init__(self, xid_map=None):
         self.codec = PacketCodec(use_native=False)
         self.codec.handshaking = False
+        self.codec.xid_map.update(xid_map or {})
         self.got = []
 
     def is_in_state(self, state):
@@ -238,34 +239,137 @@ class _Conn:
         self.got.append((pkts, err))
 
 
-def test_graphed_bucket_without_its_graph_raises(monkeypatch):
+def test_graphed_bucket_without_its_graph_raises(monkeypatch, caplog):
     """Where ticks are graphed, a bucket with no captured program
     raises instead of running the eager chain; a capture that fails is
-    a warm failure, raised by the tick that needs the bucket before any
-    packet is delivered."""
-    ing = FleetIngest(device='cpu', warm='block', bypass_bytes=0)
+    a warm failure, as the reference's failed compile: logged once at
+    error level, the bucket latched onto the scalar drain (its ticks in
+    ``ticks_scalar``, no retry), and the side stream and graph pool the
+    capture used retired."""
+    ing = FleetIngest(device='cpu', warm='block', bypass_bytes=0,
+                      min_len=1 << 13)
     bk = ing._warm_bucket(ing._bucket(8, 256))
     monkeypatch.setattr(ing, '_graphed', lambda: True)
     with pytest.raises(RuntimeError, match='no captured tick program'):
         ing._launch(bk)
 
+    captures = []
+
     class Refused:
-        def __init__(self, *_a):
-            raise RuntimeError('operation not permitted when stream is '
-                               'capturing')
+        def __init__(self, *a):
+            captures.append(a[2:])
+            raise TG.CaptureError('operation not permitted when stream '
+                                  'is capturing')
 
     monkeypatch.setattr(TG, 'TickGraph', Refused)
-    monkeypatch.setattr(torch.cuda, 'Stream', lambda _d: None)
-    monkeypatch.setattr(torch.cuda, 'graph_pool_handle', lambda: None)
-    conn = _Conn()
+    monkeypatch.setattr(torch.cuda, 'Stream', lambda _d: object())
+    monkeypatch.setattr(torch.cuda, 'graph_pool_handle', lambda: object())
+    buf, lens, _slots, maps = corpus.fleet(B=2, seed=7, frames=16)
+    conns = [_Conn(m) for m in maps]
+    halves = [(r[:n // 2].tobytes(), r[n // 2:n].tobytes())
+              for r, n in zip(buf, lens)]
 
-    async def tick():
-        ing.register(conn)
-        ing.feed(conn, _rows(0)[0])
-        with pytest.raises(RuntimeError, match='failed to warm') as e:
+    async def ticks():
+        for c in conns:
+            ing.register(c)
+        for half in (0, 1):
+            for c, h in zip(conns, halves):
+                ing.feed(c, h[half])
             ing._tick_impl()
-        return e.value
 
-    err = asyncio.run(tick())
-    assert 'capturing' in str(err.__cause__)
-    assert conn.got == [] and ing.ticks == 0
+    with caplog.at_level('ERROR', logger='zkstream_tpu_torch'):
+        asyncio.run(ticks())
+    errors = [r for r in caplog.records if 'failed to warm' in r.message]
+    assert len(errors) == 1 and 'capturing' in errors[0].message
+    assert len(captures) == 1
+    assert ing._graph_stream is None and ing._graph_pool is None
+    assert list(ing._exec.values()) == [None]
+    assert ing.ticks == 0 and ing.ticks_scalar == 2
+    for c, m, h in zip(conns, maps, halves):
+        codec = _Conn(m).codec
+        assert c.got == [(codec.decode(x), None) for x in h]
+
+
+class _KernelFailed(RuntimeError):
+    pass
+
+
+@pytest.mark.parametrize('warm', ['block', 'background'])
+@pytest.mark.parametrize('fails', ['build', 'launch', 'capture'])
+def test_card_warm_failure_latches_only_a_failed_capture(
+        monkeypatch, caplog, fails, warm):
+    """On a card only a failed capture of the torch program around the
+    kernel latches its bucket onto the scalar drain.  A kernel that
+    fails to build (``_load_kernel``) or to launch (the eager run before
+    capture) is logged, kept and raised by ``prewarm`` and by every
+    tick that needs the bucket, with no retry: the scalar codec never
+    serves the card's ticks.  The card's pieces are stubbed (a CUDA
+    ingest whose buckets, side stream, pool and capture are host
+    stand-ins)."""
+    import zkstream_tpu_torch.io.ingest as ingest_mod
+
+    ing = FleetIngest(device='cpu', warm=warm, bypass_bytes=0,
+                      min_len=1 << 13)
+    ing.device = torch.device('cuda')
+    bucket = ingest_mod._Bucket
+    monkeypatch.setattr(ingest_mod, '_Bucket', lambda Bp, L, F, _d, *w:
+                        bucket(Bp, L, F, torch.device('cpu'), *w))
+    builds = []
+
+    def load():
+        builds.append(1)
+        if fails == 'build':
+            raise _KernelFailed('nvcc exited with 1')
+
+    monkeypatch.setattr(ing, '_load_kernel', load)
+
+    class Stub:
+        def __init__(self, *_a):
+            if fails == 'launch':
+                raise _KernelFailed('CUDA error: an illegal memory access')
+            raise TG.CaptureError('operation not permitted when stream '
+                                  'is capturing')
+
+    monkeypatch.setattr(TG, 'TickGraph', Stub)
+    monkeypatch.setattr(torch.cuda, 'Stream', lambda _d: object())
+    monkeypatch.setattr(torch.cuda, 'graph_pool_handle', lambda: object())
+    buf, lens, _slots, maps = corpus.fleet(B=2, seed=7, frames=16)
+    conns = [_Conn(m) for m in maps]
+    halves = [(r[:n // 2].tobytes(), r[n // 2:n].tobytes())
+              for r, n in zip(buf, lens)]
+    key = ing._bucket(2, int(lens.max()))
+
+    async def run():
+        if fails == 'capture':
+            await ing.prewarm(2, int(lens.max()))
+        else:
+            with pytest.raises(RuntimeError, match='failed to warm') as e:
+                await ing.prewarm(2, int(lens.max()))
+            assert isinstance(e.value.__cause__, _KernelFailed)
+        for c in conns:
+            ing.register(c)
+        for half in (0, 1):
+            for c, h in zip(conns, halves):
+                ing.feed(c, h[half])
+            if fails == 'capture':
+                ing._tick_impl()
+            else:
+                with pytest.raises(RuntimeError, match='failed to warm'):
+                    ing._tick_impl()
+
+    with caplog.at_level('ERROR', logger='zkstream_tpu_torch'):
+        asyncio.run(run())
+    ing.close()
+    errors = [r for r in caplog.records if 'failed to warm' in r.message]
+    assert len(errors) == 1 and repr(key) in errors[0].message
+    assert len(builds) == 1 and ing.ticks == 0
+    if fails == 'capture':
+        assert ing._exec == {key: None} and ing.ticks_scalar == 2
+        for c, m, h in zip(conns, maps, halves):
+            codec = _Conn(m).codec
+            assert c.got == [(codec.decode(x), None) for x in h]
+    else:
+        assert isinstance(ing._exec[key], _KernelFailed)
+        assert ing.ticks_scalar == 0 and all(c.got == [] for c in conns)
+        assert all(len(ing._slots[id(c)][1]) == lens[i]
+                   for i, c in enumerate(conns))

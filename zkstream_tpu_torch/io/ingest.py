@@ -44,9 +44,19 @@ hooks, routing and packet assembly) is the reference's.  What differs:
   on those inputs into a CUDA graph (``ops/tick_graph.py``): a device
   tick is then two pinned copies in, one graph replay and the
   readbacks, not a chain of ~40 (host bodies) or ~3,500 (device bodies)
-  launches.  A warm failure, a failed capture included, raises on the
-  next tick; it never latches the bucket onto the scalar drain, and no
-  tick on a card runs the eager chain in place of the graph.
+  launches.  A warm failure is the reference's failed compile where
+  no kernel of the port failed: on the CPU any warm failure, on a card
+  a failed capture of the torch program around the kernel.  It is
+  logged at error level once and latches the bucket onto the scalar
+  drain (its ticks count in ``ticks_scalar``; the warm is never
+  retried).  A failed capture also retires the side stream and graph
+  pool it used, so the next bucket captures on fresh ones.  On a card
+  a kernel that fails to build or to launch (in the warm-up run before
+  capture) is never served by the scalar codec: the error is kept and
+  raised by ``prewarm`` and by every tick that needs the bucket.  No
+  tick on a card runs the eager chain in place of the graph, and a
+  failure when a graph replays raises, as the reference's executable
+  call does.
 
 torch is imported where a tick or a bucket needs it, never at module
 import: the client and server stacks import this module, and a process
@@ -268,7 +278,9 @@ class FleetIngest:
         #: device-body mode: frames whose body needed the scalar
         #: reader (oversized/list-overflow/malformed)
         self.body_fallbacks = 0
-        #: (Bp, L) -> _Bucket, or the exception its warm-up raised
+        #: (Bp, L) -> _Bucket; None where its warm-up failed and the
+        #: bucket drains scalar; or, on a card, the error of a kernel
+        #: that failed to build or launch (raised by its ticks)
         self._exec: dict = {}
         #: the side stream every bucket's graph is captured on and the
         #: memory pool the graphs share (made at the first capture)
@@ -364,14 +376,18 @@ class FleetIngest:
         """Build the tick's kernel (first use, on a CUDA device) and
         allocate one bucket's tensors."""
         Bp, L = key
-        if self.device.type == 'cuda':
+        if self._on_card():
             self._load_kernel()
         return _Bucket(Bp, L, self.max_frames, self.device,
                        *self._packed_widths())
 
+    def _on_card(self) -> bool:
+        """Does a tick run the port's kernel (K1 or K2) on a card?"""
+        return self.device.type == 'cuda'
+
     def _graphed(self) -> bool:
         """Does a tick run as a captured CUDA graph?  On a card, yes."""
-        return self.device.type == 'cuda'
+        return self._on_card()
 
     def _compile(self, key: tuple):
         """Warm one shape bucket: allocate it (:meth:`_warm_bucket`) and,
@@ -389,8 +405,17 @@ class FleetIngest:
                 self._graph_stream = torch.cuda.Stream(self.device)
                 self._graph_pool = torch.cuda.graph_pool_handle()
             step = self._step_fn(self.body_mode == 'device')
-            bk.graph = TickGraph(lambda: step(*bk.inputs()), self.device,
-                                 self._graph_stream, self._graph_pool)
+            try:
+                bk.graph = TickGraph(lambda: step(*bk.inputs()),
+                                     self.device, self._graph_stream,
+                                     self._graph_pool)
+            except BaseException:
+                # a failed capture leaves its pool unusable (the next
+                # capture into it fails the caching allocator's use-count
+                # assertion): later buckets capture on a fresh stream
+                # and pool
+                self._graph_stream = self._graph_pool = None
+                raise
         return bk
 
     def _load_kernel(self) -> None:
@@ -410,13 +435,25 @@ class FleetIngest:
         return 3 + n_planes * self.max_frames, n_bytes
 
     def _try_warm(self, key: tuple):
-        """Warm ``key``; a failure is returned (and raised by the tick
-        that needs the bucket), never latched onto the scalar drain."""
+        """Warm ``key`` (one policy for the inline and background warm
+        paths, the reference's ``_try_compile``).  A failure logs at
+        error level.  Where no kernel of the port failed (any failure on
+        the CPU, a failed capture on a card) it returns None, which
+        latches the bucket onto the scalar drain.  On a card, a kernel
+        that fails to build or to launch returns its error, which the
+        bucket's ticks raise: the scalar codec never serves a card's
+        ticks in place of its kernel."""
+        from ..ops.tick_graph import CaptureError
+
         try:
             return self._compile(key)
         except Exception as e:
-            self.log.error('tick bucket %r failed to warm: %s', key, e)
-            return e
+            if self._on_card() and not isinstance(e, CaptureError):
+                self.log.error('tick bucket %r failed to warm: %s', key, e)
+                return e
+            self.log.error('tick bucket %r failed to warm; it drains '
+                           'through the scalar codec: %s', key, e)
+            return None
 
     def _start_warm(self, key: tuple) -> asyncio.Event:
         """Queue (or join) the background warm for ``key``; returns the
@@ -505,14 +542,18 @@ class FleetIngest:
     async def prewarm(self, n_streams: int,
                       nbytes: int | None = None) -> None:
         """Warm the bucket for ``n_streams`` connections holding up to
-        ``nbytes`` buffered bytes each tick (default: ``min_len``)."""
+        ``nbytes`` buffered bytes each tick (default: ``min_len``).  On
+        a card, a kernel that failed to build or launch raises here."""
         key = self._bucket(n_streams, nbytes or self.min_len)
-        if self._exec.get(key, _MISSING) is not _MISSING:
-            return
-        if self.warm == 'block':
-            self._exec[key] = self._try_warm(key)
-            return
-        await self._start_warm(key).wait()
+        if key not in self._exec:
+            if self.warm == 'block':
+                self._exec[key] = self._try_warm(key)
+            else:
+                await self._start_warm(key).wait()
+        err = self._exec[key]
+        if isinstance(err, BaseException):
+            raise RuntimeError('tick bucket %r failed to warm'
+                               % (key,)) from err
 
     # -- the packed tick output --
 
@@ -712,10 +753,7 @@ class FleetIngest:
         """Batch -> pass-through: drain what the slots hold, hand each
         codec its partial-frame residue, switch."""
         self._release_held()
-        for conn, buf in active:
-            if id(conn) not in self._slots:
-                continue
-            self._deliver_scalar(conn, buf)
+        self._drain_scalar(active)
         for _cid, (conn, buf) in list(self._slots.items()):
             if buf and conn.codec is not None:
                 conn.codec.restore_pending(bytes(buf))
@@ -830,11 +868,12 @@ class FleetIngest:
                 # through the scalar codec while the bucket warms
                 self._start_warm(key)
                 self.ticks_warming += 1
-                for conn, buf in active:
-                    if id(conn) not in self._slots:
-                        continue
-                    self._deliver_scalar(conn, buf)
+                self._drain_scalar(active)
                 return
+        if bk is None:  # warm failed: this bucket stays scalar
+            self.ticks_scalar += 1
+            self._drain_scalar(active)
+            return
         if isinstance(bk, BaseException):
             raise RuntimeError('tick bucket %r failed to warm'
                                % (key,)) from bk
@@ -847,6 +886,13 @@ class FleetIngest:
                 retick = True
         if retick:
             self._schedule()
+
+    def _drain_scalar(self, active) -> None:
+        """Deliver a tick's streams through the scalar codec, skipping
+        any a delivery tore down mid-tick."""
+        for conn, buf in active:
+            if id(conn) in self._slots:
+                self._deliver_scalar(conn, buf)
 
     @staticmethod
     def _fill_staging(bk, active) -> None:

@@ -73,6 +73,13 @@ def recording():
         _tls.record = prev
 
 
+class CaptureError(RuntimeError):
+    """``program`` failed while a :class:`TickGraph` recorded it, after
+    its eager run on the same inputs succeeded: an op of the program
+    that capture refuses (a pageable copy, a host sync), not a kernel
+    that fails to build or launch."""
+
+
 class TickGraph:
     """``program()`` captured into a CUDA graph on ``device``.
 
@@ -86,7 +93,9 @@ class TickGraph:
     outputs back before the next).  One eager run of ``program`` on that
     stream comes first, so lazy set-up (kernel libraries, K2's occupancy
     query, torch's own modules) never happens under capture; its
-    launches are kept apart in ``warm_launches``.
+    launches are kept apart in ``warm_launches``.  A failure of that run
+    is raised as it is; one under capture is raised as
+    :class:`CaptureError`.
 
     Attributes: ``out``; ``launches`` — ``{module: n}`` the graph replays
     each time; ``warm_launches``; ``warm_ms`` and ``capture_ms`` on the
@@ -110,13 +119,13 @@ class TickGraph:
                                          capture_error_mode='thread_local')
                 try:
                     self.out = program()
-                except BaseException:
+                    self.graph.capture_end()
+                except Exception as e:
                     # end the capture the error left open; its own error
                     # (an invalidated capture) says less than this one
                     with contextlib.suppress(Exception):
                         self.graph.capture_end()
-                    raise
-                self.graph.capture_end()
+                    raise CaptureError('capture failed: %s' % (e,)) from e
         self.warm_ms = (t1 - t0) * 1e3
         self.capture_ms = (time.perf_counter() - t1) * 1e3
 

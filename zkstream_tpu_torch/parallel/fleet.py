@@ -143,11 +143,14 @@ class MeshFleetIngest(FleetIngest):
 
     def _warm_bucket(self, key: tuple) -> _MeshBucket:
         Bp, L = key
-        if self.mesh.has_cuda():
+        if self._on_card():
             self._load_kernel()
         n_ints, n_bytes = self._packed_widths()
         return _MeshBucket(Bp, L, self.max_frames, self.mesh,
                            n_ints + _N_GLOBALS, n_bytes)
+
+    def _on_card(self) -> bool:
+        return self.mesh.has_cuda()
 
     def _graphed(self) -> bool:
         """Ticks are graphed on one card with no process group: every

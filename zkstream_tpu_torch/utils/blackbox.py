@@ -44,6 +44,7 @@ from __future__ import annotations
 import json
 import os
 import struct
+import threading
 import time
 
 #: Version stamp inside every frame body; consumers key on it.
@@ -288,6 +289,11 @@ class BlackBoxRecorder:
         self._loop = None
         self._handle = None
         self._inflight = False
+        #: the frames the executor write in flight carries: taken by
+        #: that write or by stop(), whichever holds ``_lock`` first,
+        #: so none lands after the final frame
+        self._inflight_blob = b''
+        self._lock = threading.Lock()
         self._pending: list[bytes] = []
         self._closed = False
         self._hist = None
@@ -339,7 +345,7 @@ class BlackBoxRecorder:
         flight at a time, like the WAL's group sync)."""
         if self._inflight or self._closed or not self._pending:
             return
-        blob = b''.join(self._pending)
+        self._inflight_blob = b''.join(self._pending)
         self._pending.clear()
         self._inflight = True
 
@@ -355,17 +361,30 @@ class BlackBoxRecorder:
                 self._dispatch()      # frames queued meanwhile
 
         self._loop.run_in_executor(
-            None, self._write_sync, blob).add_done_callback(done)
+            None, self._write_inflight).add_done_callback(done)
+
+    def _write_inflight(self) -> None:
+        """The executor's half of :meth:`_dispatch`: write the frames in
+        flight, unless stop() already wrote them ahead of its final
+        frame."""
+        with self._lock:
+            blob, self._inflight_blob = self._inflight_blob, b''
+            if blob:
+                self._write_sync(blob)
 
     def _append(self, body: dict) -> None:
+        if self._closed and self._loop is not None:
+            # stop() sealed the box with its final frame; a span that
+            # settles after it (a WAL's last group fsync) stays out
+            return
         rec = encode_frame(body)
         self.frames += 1
         self._seq += 1
-        if self._loop is not None and not self._closed:
+        if self._loop is not None:
             self._pending.append(rec)
             self._dispatch()
         else:
-            # no loop (offline/unit use, or the stop path): inline
+            # no loop (offline/unit use): inline
             self._write_sync(rec)
             self._maybe_rotate()
 
@@ -464,17 +483,19 @@ class BlackBoxRecorder:
         if self._closed:
             return
         self._closed = True
-        blob = b''.join(self._pending)
-        self._pending.clear()
-        if final:
-            blob += encode_frame(self._snapshot('final'))
-            self.frames += 1
-            self._seq += 1
-        if blob:
-            try:
-                self._write_sync(blob)
-            except OSError:
-                pass
-        if self._file is not None:
-            self._file.close()
-            self._file = None
+        with self._lock:
+            blob = self._inflight_blob + b''.join(self._pending)
+            self._inflight_blob = b''
+            self._pending.clear()
+            if final:
+                blob += encode_frame(self._snapshot('final'))
+                self.frames += 1
+                self._seq += 1
+            if blob:
+                try:
+                    self._write_sync(blob)
+                except OSError:
+                    pass
+            if self._file is not None:
+                self._file.close()
+                self._file = None

@@ -1975,9 +1975,113 @@ TOOLS_CONNS = (32, 256, 1024)
 TOOLS_MODES = ('native', 'ingest', 'ingest-auto', 'ingest-py-dev')
 
 
+#: Phase 15's routing cells, ``ingest-auto`` gets at the shipped
+#: constants: (active clients, sessions in all, frames a stream).  One
+#: well below ``FleetIngest.BYPASS_BYTES`` a tick and one well above it
+#: (at least 2x from it in the H100 sweep's medians), and a fleet of
+#: 1,024 sessions with 64 active, its fill well under ``FRAG_ENTER``
+#: (PERF.md section 5, "Crossover on the H100, graphed ticks").
+TOOLS_ROUTING = {'below': (32, 32, 16), 'above': (512, 512, 16),
+                 'frag': (64, 1024, 4)}
+#: the least share of the 'above' cell's routed ticks on the device:
+#: its scalar ticks are the first three or four, while the byte average
+#: climbs past 1.25 x the threshold (the H100 sweep: 3-4 of 19-24
+#: ticks, 0.833-0.870 on the device)
+TOOLS_ABOVE_DEVICE = 0.75
+
+
+def _tools_cell(SC, mode: str, n: int, device, smi: str, want: dict,
+                fleet: int = 0) -> dict:
+    """One ``sweep_crossover`` cell of phase 15 (gets), held to its
+    counts: every get and storm delivered, and its K1 (host bodies) or
+    K2 (``ingest-py-dev``) launches equal to its device ticks, which are
+    added to ``want``."""
+    t0 = time.perf_counter()
+    idle = max(0, fleet - n)
+    r = asyncio.run(SC.run_cell(mode, n, 'get', device, idle))
+    g, fo = r['get'], r['fanout']
+    if g['count'] != g['expected']:
+        raise AssertionError('phase 15 %s at %d: %d of %d gets '
+                             'counted' % (mode, n, g['count'],
+                                          g['expected']))
+    if fo['fired'] != [n] * SC.STORMS:
+        raise AssertionError('phase 15 %s at %d: storms fired %s, '
+                             'not %d each' % (mode, n, fo['fired'], n))
+    line = ('# phase 15 sweep %s at %d%s on %s: %.1f get ops/s (p50 '
+            '%.3f, p99 %.3f ms), fan-out best %.2f ms; %.2f s'
+            % (mode, n, ' (+%d idle)' % idle if idle else '', smi,
+               g['ops_per_sec'], g['p50_ms'], g['p99_ms'], fo['best_ms'],
+               time.perf_counter() - t0))
+    ing = r.get('ingest')
+    if ing is not None:
+        k2_mode = mode == 'ingest-py-dev'
+        got = (ing['k1_launches'], ing['k2_launches'])
+        if got != ((0, ing['ticks']) if k2_mode else (ing['ticks'], 0)):
+            raise AssertionError(
+                'phase 15 %s at %d: K1 %d and K2 %d launches for %d '
+                'device ticks' % ((mode, n) + got + (ing['ticks'],)))
+        want['k2' if k2_mode else 'k1'] += ing['ticks']
+        total = max(1, ing['ticks'] + ing['scalar_ticks']
+                    + ing['warming_ticks'])
+        ing['fill'] = ing['frames'] / total / (n + idle)
+        line += ('; ticks %d device, %d scalar (%d frag), %d warming '
+                 '(device %.3f, scalar %.3f, frag %.3f of ticks), '
+                 '%.1f frames a device tick, %.1f bytes a tick, fill '
+                 '%.4f, tick p50/p99 %s ms; K1 %d, K2 %d'
+                 % (ing['ticks'], ing['scalar_ticks'],
+                    ing['frag_ticks'], ing['warming_ticks'],
+                    ing['ticks'] / total,
+                    ing['scalar_ticks'] / total,
+                    ing['frag_ticks'] / total,
+                    ing['frames_per_tick'], ing['bytes_per_tick'],
+                    ing['fill'],
+                    '%s/%s' % (ing['tick_ms']['p50'],
+                               ing['tick_ms']['p99'])
+                    if 'tick_ms' in ing else '-', got[0], got[1]))
+    _log(line)
+    return r
+
+
+def _tools_routing(SC, device, smi: str, want: dict) -> None:
+    """Phase 15's hold on the shipped dispatch policy: a cell below the
+    byte threshold drains every tick through the scalar codec, one above
+    it runs its ticks on the device (K1 launches = device ticks), and a
+    fragmented fleet's ticks meet the guard."""
+    from zkstream_tpu_torch.io.ingest import FleetIngest as FI
+
+    _log('# phase 15 shipped dispatch constants: BYPASS_BYTES %d, '
+         'FRAG_MIN_FLEET %d, FRAG_ENTER %.2f, FRAG_EXIT %.2f'
+         % (FI.BYPASS_BYTES, FI.FRAG_MIN_FLEET, FI.FRAG_ENTER,
+            FI.FRAG_EXIT))
+    for what, (n, fleet, frames) in TOOLS_ROUTING.items():
+        SC.MAX_FRAMES = frames
+        ing = _tools_cell(SC, 'ingest-auto', n, device, smi, want,
+                          fleet)['ingest']
+        routed = ing['ticks'] + ing['scalar_ticks'] + ing['warming_ticks']
+        if what == 'below':
+            ok = ing['ticks'] == 0 and ing['scalar_ticks'] > 0
+        elif what == 'above':
+            ok = ing['ticks'] >= TOOLS_ABOVE_DEVICE * routed
+        else:
+            ok = ing['frag_ticks'] > 0
+        if not ok:
+            raise AssertionError(
+                'phase 15 routing, %s: ingest-auto at %d of %d sessions '
+                'routed %d device, %d scalar (%d frag), %d warming ticks '
+                'at %.1f bytes a tick, fill %.4f'
+                % (what, n, fleet, ing['ticks'], ing['scalar_ticks'],
+                   ing['frag_ticks'], ing['warming_ticks'],
+                   ing['bytes_per_tick'], ing['fill']))
+        _log('# phase 15 routing %s: held (%.1f bytes a tick against %d, '
+             'fill %.4f against %.2f)' % (what, ing['bytes_per_tick'],
+                                          FI.BYPASS_BYTES, ing['fill'],
+                                          FI.FRAG_ENTER))
+
+
 def _tools_phase(W, K2, smi: str, device: str = 'cuda') -> dict:
     """Phase 15: the tools of ``zkstream_tpu_torch/tools/`` driven on
-    ``device``; returns the K1 and K2 launches of its ingests."""
+    ``device``, and the shipped dispatch policy held on its routing
+    cells; returns the K1 and K2 launches of its ingests."""
     from zkstream_tpu_torch.tools import (bench_linearize, crossover_encode,
                                          diag_ingest, profile_hotpath)
     from zkstream_tpu_torch.tools import sweep_crossover as SC
@@ -1988,48 +2092,8 @@ def _tools_phase(W, K2, smi: str, device: str = 'cuda') -> dict:
     for n in TOOLS_CONNS:
         SC.MAX_FRAMES = 4 if n >= 1024 else 16
         for mode in TOOLS_MODES:
-            t0 = time.perf_counter()
-            r = asyncio.run(SC.run_cell(mode, n, 'get', device))
-            g, fo = r['get'], r['fanout']
-            if g['count'] != g['expected']:
-                raise AssertionError('phase 15 %s at %d: %d of %d gets '
-                                     'counted' % (mode, n, g['count'],
-                                                  g['expected']))
-            if fo['fired'] != [n] * SC.STORMS:
-                raise AssertionError('phase 15 %s at %d: storms fired %s, '
-                                     'not %d each' % (mode, n, fo['fired'],
-                                                      n))
-            line = ('# phase 15 sweep %s at %d on %s: %.1f get ops/s (p50 '
-                    '%.3f, p99 %.3f ms), fan-out best %.2f ms; %.2f s'
-                    % (mode, n, smi, g['ops_per_sec'], g['p50_ms'],
-                       g['p99_ms'], fo['best_ms'],
-                       time.perf_counter() - t0))
-            ing = r.get('ingest')
-            if ing is not None:
-                k2_mode = mode == 'ingest-py-dev'
-                got = (ing['k1_launches'], ing['k2_launches'])
-                if got != ((0, ing['ticks']) if k2_mode
-                           else (ing['ticks'], 0)):
-                    raise AssertionError(
-                        'phase 15 %s at %d: K1 %d and K2 %d launches for %d '
-                        'device ticks' % ((mode, n) + got + (ing['ticks'],)))
-                want['k2' if k2_mode else 'k1'] += ing['ticks']
-                total = max(1, ing['ticks'] + ing['scalar_ticks']
-                            + ing['warming_ticks'])
-                line += ('; ticks %d device, %d scalar (%d frag), %d warming '
-                         '(device %.3f, scalar %.3f, frag %.3f of ticks), '
-                         '%.1f frames and %.1f bytes a tick, tick p50/p99 '
-                         '%s ms; K1 %d, K2 %d'
-                         % (ing['ticks'], ing['scalar_ticks'],
-                            ing['frag_ticks'], ing['warming_ticks'],
-                            ing['ticks'] / total,
-                            ing['scalar_ticks'] / total,
-                            ing['frag_ticks'] / total,
-                            ing['frames_per_tick'], ing['bytes_per_tick'],
-                            '%s/%s' % (ing['tick_ms']['p50'],
-                                       ing['tick_ms']['p99'])
-                            if 'tick_ms' in ing else '-', got[0], got[1]))
-            _log(line)
+            _tools_cell(SC, mode, n, device, smi, want)
+    _tools_routing(SC, device, smi, want)
     SC.MAX_FRAMES = 16
     t0 = time.perf_counter()
     d = asyncio.run(diag_ingest.run(32, 15, device))

@@ -196,15 +196,19 @@ class FleetIngest:
     """
 
     #: Dispatch calibration, from ``tools/sweep_crossover.py`` on one
-    #: NVIDIA H100 80GB HBM3 at a 700 W power limit (PERF.md section 5,
-    #: "Crossover on the H100"): the default ``bypass_bytes``, and the
-    #: fragmentation guard's fleet floor and its enter/exit fill of
-    #: frames a tick over the fleet size.  Paired against the C drain
-    #: over 10 rounds, the batched path lost at 64 connections (8.5 KB
-    #: a tick, sign test p = 0.02) and was at parity from 128 (15.5 KB,
-    #: p = 0.34), so the 16 KiB threshold stands; no fill the sweep
-    #: produced (0.6-1.0 of the fleet at 1,024 connections) lost, so
-    #: the guard keeps its values.
+    #: NVIDIA H100 80GB HBM3 at a 700.00 W power limit, each tick one
+    #: graph replay (PERF.md section 5, "Crossover on the H100, graphed
+    #: ticks"; each size paired against the C drain over 10 rounds,
+    #: sign test): the default ``bypass_bytes``, and the fragmentation
+    #: guard's fleet floor and its enter/exit fill of frames a tick over
+    #: the fleet size.  With both guards off the batched path lost to
+    #: the C drain at 64 connections (gets, 8,529 bytes a tick, p =
+    #: 0.0215) and at no larger size (128: 15,540 bytes, p = 0.34;
+    #: writes lost at no size, p >= 0.34), so the threshold stays 16
+    #: KiB.  In a fleet of 1,024 sessions it lost at no fill from 0.06
+    #: to 0.95 (64-1,024 active, p >= 0.34), so the guard's fills stay;
+    #: no fleet under 600 sessions showed a sparse tick, so its floor
+    #: stays.
     BYPASS_BYTES = 16384
     FRAG_MIN_FLEET = 600
     FRAG_ENTER = 0.25

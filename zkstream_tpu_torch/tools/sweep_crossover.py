@@ -28,6 +28,12 @@ Workloads per cell (``--workload``): ``get`` (default) runs
 concurrent gets plus a notification fan-out storm; ``write`` is
 SET_DATA/CREATE-dominated (2 sets : 1 create).
 
+``--fleet N`` tops each cell up to N sessions with idle ones: connected
+clients on the same ingest that hold their session and only keep it
+alive, so ticks carry a few streams of a large fleet (the regime the
+fragmentation guard routes).  The ``--conns`` sizes stay the active
+clients; the default adds none, and the cell is the reference's.
+
 Every cell also reports the flush-batch-size distributions
 (zookeeper_flush_batch_frames/_bytes, client and server planes) and —
 for ingest modes — the routing counters, the bytes a tick, the ingest
@@ -42,8 +48,9 @@ every cell raises unless ``--device cpu`` is given).  Emits one JSON
 line per cell to stdout:
 
   python -m zkstream_tpu_torch.tools.sweep_crossover [--conns 32,256]
-      [--modes ...] [--rounds 3] [--paired A,B] [--workload get|write]
-      [--max-frames 16] [--device cuda|cpu]
+      [--modes ...] [--rounds 3] [--paired A[,A2...],B]
+      [--workload get|write] [--max-frames 16] [--fleet N]
+      [--device cuda|cpu]
 """
 
 from __future__ import annotations
@@ -52,6 +59,7 @@ import argparse
 import asyncio
 import json
 import os
+import statistics
 import time
 
 GETS_TOTAL = 2048        # total get ops per cell, split over the fleet
@@ -121,7 +129,9 @@ def _count_bytes(ingest) -> list:
 
 
 async def run_cell(mode: str, n_conns: int, workload: str = 'get',
-                   device='cuda') -> dict:
+                   device='cuda', idle: int = 0) -> dict:
+    """One cell: ``n_conns`` clients run the workload, beside ``idle``
+    clients that only hold their sessions."""
     from .. import Client
     from ..io.sendplane import scrape_flush_cells
     from ..ops import full_scan, wire_scan
@@ -160,25 +170,28 @@ async def run_cell(mode: str, n_conns: int, workload: str = 'get',
     clients = [Client(address='127.0.0.1', port=srv.port,
                       session_timeout=SESSION_TIMEOUT_MS, ingest=ingest,
                       cork=cork, collector=collector, **kw)
-               for _ in range(n_conns)]
+               for _ in range(n_conns + idle)]
     for c in clients:
         c.start()
+    fleet, clients = clients, clients[:n_conns]
     out = {'mode': cell_mode, 'conns': n_conns,
            'workload': workload}
+    if idle:
+        out['idle'] = idle
     try:
         await asyncio.gather(*[c.wait_connected(timeout=60)
-                               for c in clients])
+                               for c in fleet])
         await clients[0].create('/b', b'x' * 64)
         if ingest is not None:
             bp = 8
-            while bp < n_conns:
+            while bp < len(fleet):
                 await ingest.prewarm(bp)
                 await ingest.prewarm(bp, 512)
                 await ingest.prewarm(bp, 1024)
                 bp *= 2
-            await ingest.prewarm(n_conns)
-            await ingest.prewarm(n_conns, 512)
-            await ingest.prewarm(n_conns, 1024)
+            await ingest.prewarm(len(fleet))
+            await ingest.prewarm(len(fleet), 512)
+            await ingest.prewarm(len(fleet), 1024)
 
         # warm steady state
         for _ in range(3):
@@ -276,7 +289,7 @@ async def run_cell(mode: str, n_conns: int, workload: str = 'get',
                 os.environ.pop('ZKSTREAM_NO_FASTENC', None)
             else:
                 os.environ['ZKSTREAM_NO_FASTENC'] = prev_fastenc
-        await asyncio.gather(*[c.close() for c in clients])
+        await asyncio.gather(*[c.close() for c in fleet])
         await srv.stop()
         if ingest is not None:
             ingest.close()
@@ -326,12 +339,13 @@ def _sign_test_p(wins: int, losses: int) -> float:
     return sign_test_p(wins, losses)
 
 
-def _cell(mode: str, n: int, workload: str, device, rnd: int) -> dict:
+def _cell(mode: str, n: int, workload: str, device, rnd: int,
+          idle: int = 0) -> dict:
     """One cell in its own event loop; an exception becomes the cell's
     ``error`` (a sweep runs on)."""
     t0 = time.time()
     try:
-        r = asyncio.run(run_cell(mode, n, workload, device))
+        r = asyncio.run(run_cell(mode, n, workload, device, idle))
     except Exception as e:
         r = {'mode': mode, 'conns': n, 'error': repr(e)}
     r['cell_s'] = round(time.time() - t0, 1)
@@ -340,72 +354,112 @@ def _cell(mode: str, n: int, workload: str, device, rnd: int) -> dict:
     return r
 
 
-def run_paired(mode_a: str, mode_b: str, conns: list[int],
+def run_paired(mode_a, mode_b: str, conns: list[int],
                rounds: int, workload: str = 'get',
-               device='cuda') -> list[dict]:
-    """Paired comparison: run the two modes back-to-back within each
+               device='cuda', fleet: int = 0) -> list[dict]:
+    """Paired comparison: run the modes back-to-back within each
     round — adjacent in time, same host conditions — and judge each
     fleet size on the per-round SIGN of the delta rather than best-of-N
-    point estimates.  Emits (and returns) one summary JSON per fleet
-    size: win counts, every paired delta, the exact sign-test p-value,
-    and the dispatch-policy routing fractions (how often the
-    guard/threshold actually sent ticks to the scalar drain)."""
+    point estimates.  ``mode_a`` is one mode or a tuple of modes, each
+    paired with the same round's ``mode_b`` cell.  ``fleet`` tops each
+    size up to that many sessions with idle ones.  Emits (and returns)
+    one summary JSON per mode and fleet size: win counts, every paired
+    delta, the exact sign-test p-value, the median bytes and frames a
+    tick (over every routed tick) and the fill (frames a tick over the
+    fleet size), and the dispatch-policy routing fractions over every
+    round (how often the guard/threshold actually sent ticks to the
+    scalar drain)."""
     metric = 'write' if workload == 'write' else 'get'
-    deltas: dict[int, list[float]] = {n: [] for n in conns}
-    routing: dict[int, dict] = {}
-    #: n -> plane -> [frames, flushes] pooled over EVERY round of
-    #: mode_a (a last-round sample would misrepresent the batch-size
+    modes_a = (mode_a,) if isinstance(mode_a, str) else tuple(mode_a)
+    keys = [(a, n) for a in modes_a for n in conns]
+    deltas: dict[tuple, list[float]] = {k: [] for k in keys}
+    #: (mode, n) -> per-pair bytes a tick, frames a tick, fill; and the
+    #: ingest counters summed over those pairs
+    ticks: dict[tuple, dict] = {k: {'bytes': [], 'frames': [],
+                                    'fill': []} for k in keys}
+    counts: dict[tuple, dict] = {}
+    #: (mode, n) -> plane -> [frames, flushes] pooled over EVERY round
+    #: (a last-round sample would misrepresent the batch-size
     #: distribution the summary line is cited for; full per-round
     #: percentiles stay on the '#' cell lines)
-    flush_acc: dict[int, dict] = {}
+    flush_acc: dict[tuple, dict] = {}
     for rnd in range(rounds):
         for n in conns:
-            cell = {mode: _cell(mode, n, workload, device, rnd)
-                    for mode in (mode_a, mode_b)}
-            a, b = cell[mode_a], cell[mode_b]
-            if 'error' in a or 'error' in b:
-                continue
-            for plane, st in (a.get('flush') or {}).items():
-                row = flush_acc.setdefault(n, {}).setdefault(
-                    plane, [0.0, 0])
-                row[0] += st['frames_mean'] * st['flushes']
-                row[1] += st['flushes']
-            ops_a = a[metric]['ops_per_sec']
-            ops_b = b[metric]['ops_per_sec']
-            if ops_b <= 0 or ops_a <= 0:   # a silently idle cell must
-                continue                   # skip its pair, not void
-                                           # the whole sweep
-            deltas[n].append((ops_a - ops_b) / ops_b * 100.0)
-            if 'ingest' in a:
-                ing = a['ingest']
-                total = max(1, ing['ticks'] + ing['scalar_ticks']
-                            + ing['warming_ticks'] + ing['frag_ticks'])
-                routing[n] = {
-                    'device_frac': round(ing['ticks'] / total, 3),
-                    'scalar_frac': round(
-                        ing['scalar_ticks'] / total, 3),
-                    'frag_frac': round(ing['frag_ticks'] / total, 3),
-                    'frames_per_tick': ing['frames_per_tick']}
+            idle = max(0, fleet - n)
+            cell = {mode: _cell(mode, n, workload, device, rnd, idle)
+                    for mode in modes_a + (mode_b,)}
+            b = cell[mode_b]
+            for mode in modes_a:
+                a = cell[mode]
+                if 'error' in a or 'error' in b:
+                    continue
+                ops_a = a[metric]['ops_per_sec']
+                ops_b = b[metric]['ops_per_sec']
+                if ops_b <= 0 or ops_a <= 0:   # a silently idle cell
+                    continue                   # must skip its pair,
+                                               # not void the sweep
+                k = (mode, n)
+                for plane, st in (a.get('flush') or {}).items():
+                    row = flush_acc.setdefault(k, {}).setdefault(
+                        plane, [0.0, 0])
+                    row[0] += st['frames_mean'] * st['flushes']
+                    row[1] += st['flushes']
+                deltas[k].append((ops_a - ops_b) / ops_b * 100.0)
+                ing = a.get('ingest')
+                if ing is None:
+                    continue
+                routed = max(1, ing['ticks'] + ing['scalar_ticks']
+                             + ing['warming_ticks'])
+                ticks[k]['bytes'].append(ing['bytes_per_tick'])
+                ticks[k]['frames'].append(ing['frames'] / routed)
+                ticks[k]['fill'].append(ing['frames'] / routed
+                                        / (n + idle))
+                acc = counts.setdefault(k, dict.fromkeys(
+                    ('ticks', 'scalar_ticks', 'warming_ticks',
+                     'frag_ticks', 'frames'), 0))
+                for f in acc:
+                    acc[f] += ing[f]
     summaries = []
-    for n in conns:
-        ds = deltas[n]
+    for mode, n in keys:
+        k = (mode, n)
+        ds = deltas[k]
         wins = sum(1 for d in ds if d > 0)
         losses = sum(1 for d in ds if d < 0)
         mean = sum(ds) / len(ds) if ds else 0.0
+        routing = None
+        if k in counts:
+            c = counts[k]
+            total = max(1, c['ticks'] + c['scalar_ticks']
+                        + c['warming_ticks'])
+            routing = {
+                'device_frac': round(c['ticks'] / total, 3),
+                'scalar_frac': round(c['scalar_ticks'] / total, 3),
+                'frag_frac': round(c['frag_ticks'] / total, 3),
+                'frames_per_tick': round(
+                    c['frames'] / max(1, c['ticks']), 1)}
+        med = {f: statistics.median(v) if v else None
+               for f, v in ticks[k].items()}
         s = {
-            'paired': '%s-vs-%s' % (mode_a, mode_b),
+            'paired': '%s-vs-%s' % (mode, mode_b),
             'workload': workload,
             'conns': n,
+            'fleet': max(fleet, n),
             'pairs': len(ds),
             'wins': wins,
             'losses': losses,
             'mean_delta_pct': round(mean, 2),
             'deltas_pct': [round(d, 2) for d in ds],
             'sign_p': round(_sign_test_p(wins, losses), 4),
-            'routing': routing.get(n),
+            'bytes_per_tick_median': med['bytes'],
+            'frames_per_tick_median': (
+                None if med['frames'] is None
+                else round(med['frames'], 2)),
+            'fill_median': (None if med['fill'] is None
+                            else round(med['fill'], 4)),
+            'routing': routing,
             'flush': {plane: {'flushes': int(row[1]),
                               'frames_mean': round(row[0] / row[1], 2)}
-                      for plane, row in flush_acc.get(n, {}).items()
+                      for plane, row in flush_acc.get(k, {}).items()
                       if row[1]} or None,
         }
         print(json.dumps(s), flush=True)
@@ -422,15 +476,18 @@ def main(argv=None) -> None:
                     help='interleaved rounds per cell; best get-ops '
                          'round is reported (scheduling noise swings '
                          'single runs)')
-    ap.add_argument('--paired', default=None, metavar='A,B',
-                    help='paired-design comparison of exactly two '
-                         'modes (e.g. ingest-auto,native or '
+    ap.add_argument('--paired', default=None, metavar='A[,A2...],B',
+                    help='paired-design comparison of each mode A with '
+                         'the last mode B (e.g. ingest-auto,native or '
                          'native,native-nocork): per-round deltas + '
                          'exact sign test per fleet size')
     ap.add_argument('--workload', default='get',
                     choices=('get', 'write'),
                     help='get: concurrent gets + fan-out storm; '
                          'write: SET_DATA/CREATE-dominated')
+    ap.add_argument('--fleet', type=int, default=0,
+                    help='top each cell up to this many sessions with '
+                         'idle ones (0: none)')
     ap.add_argument('--device', default='cuda', choices=('cuda', 'cpu'),
                     help='where the ingest modes run their ticks')
     args = ap.parse_args(argv)
@@ -441,9 +498,11 @@ def main(argv=None) -> None:
     MAX_FRAMES = args.max_frames
     conns = [int(x) for x in args.conns.split(',')]
     if args.paired:
-        mode_a, mode_b = args.paired.split(',')
-        run_paired(mode_a, mode_b, conns, args.rounds, args.workload,
-                   args.device)
+        *modes_a, mode_b = args.paired.split(',')
+        if not modes_a:
+            ap.error('--paired needs at least two modes')
+        run_paired(tuple(modes_a), mode_b, conns, args.rounds,
+                   args.workload, args.device, args.fleet)
         return
     modes = args.modes.split(',')
     best: dict = {}
@@ -451,7 +510,8 @@ def main(argv=None) -> None:
     for rnd in range(args.rounds):
         for n in conns:
             for mode in modes:
-                r = _cell(mode, n, args.workload, args.device, rnd)
+                r = _cell(mode, n, args.workload, args.device, rnd,
+                          max(0, args.fleet - n))
                 key = (mode, n)
                 if 'error' in r:
                     best.setdefault(key, r)

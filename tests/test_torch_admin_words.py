@@ -182,8 +182,15 @@ async def test_trce_word_dumps_member_ring(server):
     what `timeline --live` merges across members."""
     import json
 
+    from zkstream_tpu.utils import trace as ref_trace
     from zkstream_tpu_torch.utils.trace import TRACE_SCHEMA
 
+    # each package stamps its own schema (the port's client spans
+    # carry op stages since schema 3; the reference's member rings
+    # stay at 2)
+    want = (ref_trace.TRACE_SCHEMA
+            if type(server).__module__.startswith('zkstream_tpu.')
+            else TRACE_SCHEMA)
     c = Client(address='127.0.0.1', port=server.port,
                session_timeout=5000)
     c.start()
@@ -192,7 +199,7 @@ async def test_trce_word_dumps_member_ring(server):
         await c.create('/t', b'x')
         await c.set('/t', b'y')
         dump = json.loads(await _four_letter(server, b'trce'))
-        assert dump['trace_schema'] == TRACE_SCHEMA
+        assert dump['trace_schema'] == want
         assert dump['member'] == server.member
         assert dump['dropped'] == 0
         ops = [s['op'] for s in dump['spans']]
@@ -293,3 +300,91 @@ async def test_cli_metrics_subcommand(server, capsys):
     assert '# TYPE zookeeper_op_latency_ms histogram' in out
     assert 'zookeeper_op_latency_ms_count{op="PING"} 1' in out
     assert '# TYPE zkstream_fsm_transitions counter' in out
+
+
+class _SlowDisk:
+    """Every group fsync takes 40 ms more: corked replies park on the
+    ack gate instead of clearing at once."""
+
+    def fsync_fault(self):
+        return 40.0, False
+
+
+def _rows(srv) -> dict:
+    return dict(srv.monitor_stats())
+
+
+async def test_wal_gate_counts_foreign_holds(tmp_path):
+    """Session A's write and session B's read in one tick: both corked
+    replies wait for the group fsync that covers A's txn; B's counts as
+    held for another session's write, A's does not."""
+    from zkstream_tpu_torch.server import ZKServer
+
+    srv = await ZKServer(wal_dir=str(tmp_path), durability='tick').start()
+    a = Client(address='127.0.0.1', port=srv.port, session_timeout=5000)
+    b = Client(address='127.0.0.1', port=srv.port, session_timeout=5000)
+    a.start()
+    b.start()
+    try:
+        await a.wait_connected(timeout=5)
+        await b.wait_connected(timeout=5)
+        await a.create('/a', b'0')
+        await b.create('/b', b'0')
+        await asyncio.sleep(0.1)
+        wal = srv.db.wal
+        wal.faults = _SlowDisk()
+        wal._sync_ewma_ms = None       # not the fast device: off-loop
+        r0 = _rows(srv)
+        await asyncio.gather(a.set('/a', b'1'), b.get('/b'))
+        r1 = _rows(srv)
+        assert r1['zk_wal_gate_holds'] - r0['zk_wal_gate_holds'] == 2
+        assert (r1['zk_wal_gate_holds_foreign']
+                - r0['zk_wal_gate_holds_foreign']) == 1
+        held = (r1['zk_wal_gate_hold_ms_sum']
+                - r0['zk_wal_gate_hold_ms_sum'])
+        assert held >= 2 * 30.0, held
+        text = (await _four_letter(srv, b'mntr')).decode()
+        kv = dict(line.split('\t', 1)
+                  for line in text.strip().splitlines())
+        assert int(kv['zk_wal_gate_holds']) == r1['zk_wal_gate_holds']
+        assert float(kv['zk_wal_gate_hold_ms_sum']) >= held
+    finally:
+        await a.close()
+        await b.close()
+        await srv.stop()
+
+
+async def test_tick_phase_sum_rows_equal_the_ledger():
+    """mntr's cumulative tick rows are the ledger histograms' sums."""
+    from zkstream_tpu_torch.server import ZKServer
+
+    srv = await ZKServer().start()
+    c = Client(address='127.0.0.1', port=srv.port, session_timeout=5000)
+    c.start()
+    try:
+        await c.wait_connected(timeout=5)
+        for i in range(20):
+            await c.create('/t%d' % (i,), b'x')
+            await c.get('/t%d' % (i,))
+        await asyncio.sleep(0.05)
+        led = srv.ledger
+        rows = _rows(srv)
+        assert rows['zk_tick_ms_sum'] == led.tick_hist.sum() > 0
+        seen = 0
+        for phase in led.PHASES:
+            key = 'zk_tick_phase_ms_sum{phase="%s"}' % (phase,)
+            want = led.phase_hist.sum({'phase': phase})
+            if led.phase_hist.count({'phase': phase}):
+                assert rows[key] == want
+                seen += 1
+            else:
+                assert key not in rows
+        assert seen >= 2 and rows[
+            'zk_tick_phase_ms_sum{phase="decode_apply"}'] > 0
+        text = (await _four_letter(srv, b'mntr')).decode()
+        kv = dict(line.split('\t', 1)
+                  for line in text.strip().splitlines())
+        assert float(kv['zk_tick_ms_sum']) >= rows['zk_tick_ms_sum']
+    finally:
+        await c.close()
+        await srv.stop()

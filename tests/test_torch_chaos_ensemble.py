@@ -52,7 +52,7 @@ from zkstream_tpu_torch.io.invariants import (
 )
 from zkstream_tpu_torch.server.store import ZKDatabase
 from zkstream_tpu_torch.utils.metrics import Collector
-from zkstream_tpu_torch.utils.trace import format_spans
+from zkstream_tpu_torch.utils.trace import TRACE_SCHEMA, format_spans
 from test_torch_basic import ensemble_cls, server, server_cls  # noqa: F401
 
 #: The CPU tests run every plan's ``FleetIngest`` on the CPU (the port's
@@ -707,9 +707,9 @@ def test_chaos_ensemble_cli_rerun_and_trace(tmp_path):
     assert all(d['tier'] == 'ensemble' for d in dumps)
     assert all('member_events' in d and 'history' in d
                for d in dumps)
-    # schema-2 payload: stamped, member rings per member, merged
+    # schema-stamped payload: member rings per member, merged
     # zxid-ordered timeline
-    assert all(d['trace_schema'] == 2 for d in dumps)
+    assert all(d['trace_schema'] == TRACE_SCHEMA for d in dumps)
     # 3 voters, plus any plan-drawn observers (the read plane): every
     # member's ring is carried, observers included
     assert all(len(d['member_rings']) >= 3 for d in dumps)

@@ -13,6 +13,7 @@ import pytest
 
 from helpers import wait_until
 from zkstream_tpu_torch import Client, cli
+from zkstream_tpu_torch.utils.trace import TRACE_SCHEMA
 from test_torch_basic import ensemble_cls, server, server_cls  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -353,7 +354,7 @@ async def test_cli_timeline_demo_text_and_json(capsys):
     out, _err = capsys.readouterr()
     assert rc == 0
     dump = json.loads(out)
-    assert dump['trace_schema'] == 2
+    assert dump['trace_schema'] == TRACE_SCHEMA
     assert set(dump['rings']) >= {'client', 'member:0', 'member:1'}
     assert any(e['op'] == 'GROUP_FSYNC' for e in dump['timeline'])
 

@@ -140,8 +140,14 @@ async def test_ping_and_metrics_print_the_same(tree):
     assert port == ref and port[1] == 'ping ok: # ms\n'
     port, ref = await _both(_srv(tree) + ['metrics'], mask=True)
     assert port[0] == ref[0] == 0
-    # the exposition lists the same series; their values are timings
-    assert sorted(port[1].splitlines()) == sorted(ref[1].splitlines())
+    # the exposition lists the same series, and the port's op stages
+    # beside them; their values are timings
+    stage = 'zookeeper_op_stage_ms'
+    lines = port[1].splitlines()
+    assert sorted(ln for ln in lines if stage not in ln) == \
+        sorted(ref[1].splitlines())
+    assert any(ln.startswith(stage + '_count{stage="send"}')
+               for ln in lines)
 
 
 @pytest.mark.parametrize('word', ['mntr', 'ruok', 'srvr', 'stat'])

@@ -312,7 +312,7 @@ def test_commit_barrier_composes_wal_and_quorum(event_loop):
             cleared = False
             release = None
 
-            def gate_flush(self, release):
+            def gate_flush(self, release, mark=None):
                 if self.cleared:
                     return True
                 self.release = release

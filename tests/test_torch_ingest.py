@@ -311,8 +311,9 @@ async def test_ext_slice_failure_wraps_as_bad_decode():
 
 def test_bind_metrics_names_match_jax():
     """``bind_metrics`` registers the reference's six gauges and its
-    tick histogram, under the same names and types, and refuses a
-    second binding without a prefix."""
+    tick histogram, under the same names and types, beside the port's
+    own tick-phase gauge, and refuses a second binding without a
+    prefix."""
     from zkstream_tpu.utils.metrics import Collector as RefCollector
     from zkstream_tpu_torch.utils.metrics import Collector
 
@@ -323,12 +324,17 @@ def test_bind_metrics_names_match_jax():
 
     def names(col):
         return sorted(set(col._gauges) | set(col._histograms))
-    assert names(port) == names(ref)
-    assert len(port._gauges) == 6
+    phase = 'zkstream_ingest_phase_s'
+    assert names(port) == sorted(names(ref) + [phase])
+    assert len(port._gauges) == 7
     assert ing.tick_hist is port.get_collector('zkstream_ingest_tick_ms')
     assert [ln for ln in port.expose().splitlines()
-            if ln.startswith('# TYPE')] == \
+            if ln.startswith('# TYPE') and phase not in ln] == \
         [ln for ln in ref.expose().splitlines() if ln.startswith('# TYPE')]
+    ing.route_s = 0.25
+    assert '%s{phase="route"} 0.25' % (phase,) in port.expose()
+    assert sum(ln.startswith(phase + '{') for ln in
+               port.expose().splitlines()) == 4
     ing.ticks = 3
     assert 'zkstream_ingest_ticks 3' in port.expose()
     with pytest.raises(ValueError, match='already registered'):

@@ -183,7 +183,9 @@ def test_mesh_bucket_divides_over_dp_and_metrics():
     port, ref = Collector(), RefCollector()
     ing.bind_metrics(port)
     RefMeshIngest(mesh=ref_make_mesh(dp=8)).bind_metrics(ref)
-    assert sorted(port._gauges) == sorted(ref._gauges)
+    # the reference's gauges, and the port's tick-phase gauge
+    assert sorted(port._gauges) == sorted(list(ref._gauges)
+                                          + ['zkstream_ingest_phase_s'])
     assert 'zkstream_fleet_max_zxid 0' in port.expose()
     with pytest.raises(ValueError, match='match'):
         MeshFleetIngest(mesh=_mesh(), device='cuda')

@@ -457,6 +457,7 @@ async def test_trce_scrape_merges_cross_process_timeline(
     follower apply, fan-out delivery — reassembled by scraping every
     member's `trce` admin word over raw TCP and merging by zxid."""
     from zkstream_tpu_torch.utils.trace import (
+        TRACE_SCHEMA,
         format_timeline,
         merge_timelines,
     )
@@ -484,7 +485,7 @@ async def test_trce_scrape_merges_cross_process_timeline(
         rings = {'client': c.trace.dump()}
         for port in (leader.ports[0], f1.ports[0], f2.ports[0]):
             dump = await _scrape_trce(port)
-            assert dump['trace_schema'] == 2
+            assert dump['trace_schema'] == TRACE_SCHEMA
             rings['member:%s' % (dump['member'],)] = dump['spans']
         merged = merge_timelines(rings)
         sel = [(e['source'], e['op']) for e in merged

@@ -150,7 +150,7 @@ async def test_injected_ring_and_capacity(server):
 
 def test_span_to_dict_is_stable_ordered():
     """Key order is fixed regardless of the order fields were set —
-    trace-out JSON must be byte-stable per span (trace_schema 2)."""
+    trace-out JSON must be byte-stable per span (trace_schema 3)."""
     ring = TraceRing(member='7')
     a = ring.start('SET_DATA', '/x')
     a.backend = 'b:1'
@@ -172,7 +172,7 @@ def test_span_to_dict_is_stable_ordered():
     # explicit duration survives the instant close (pre-measured
     # stages: GROUP_FSYNC, WAL_RECOVER)
     assert d['duration_ms'] == 1.25
-    assert TRACE_SCHEMA == 2
+    assert TRACE_SCHEMA == 3
 
 
 def test_ring_counts_dropped_overwrites():

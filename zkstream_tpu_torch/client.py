@@ -46,15 +46,23 @@ from .protocol.consts import MAX_PACKET, CreateFlag
 from .protocol.errors import ZKDeadlineError, ZKNotConnectedError, \
     ZKThrottledError
 from .protocol.records import OPEN_ACL_UNSAFE, Stat
+from .utils import trace as _trace
 from .utils.aio import ambient_loop
 from .utils.fsm import FSM, bind_transition_metrics
 from .utils.logging import Logger
 from .utils.metrics import Collector
-from .utils.trace import TraceRing
+from .utils.trace import OP_STAGES, TraceRing
 
 METRIC_ZK_EVENT_COUNTER = 'zookeeper_events'
 METRIC_ZK_DEGRADED_GAUGE = 'zookeeper_degraded'
 METRIC_ZK_OP_LATENCY = 'zookeeper_op_latency_ms'
+METRIC_ZK_OP_STAGE = 'zookeeper_op_stage_ms'
+
+#: Op-stage buckets, ms: a send or an ingest hop takes microseconds, a
+#: remote or resume stage up to seconds under load.
+STAGE_BUCKETS = (0.01, 0.025, 0.05, 0.1, 0.25, 0.5, 1.0, 2.5, 5.0, 10.0,
+                 25.0, 50.0, 100.0, 250.0, 500.0, 1000.0, 2500.0, 5000.0,
+                 10000.0)
 
 #: Default session timeout, ms (reference: lib/client.js:80-83).
 DEFAULT_SESSION_TIMEOUT = 30000
@@ -173,6 +181,16 @@ class Client(FSM):
         self._op_latency = self.collector.histogram(
             METRIC_ZK_OP_LATENCY,
             'Client op round-trip latency, milliseconds, by opcode')
+        #: ``_op_latency``'s series by opcode, each resolved at its
+        #: first op (no label dict or key built an op after that).
+        self._op_latency_series: dict = {}
+        #: The same latency split into its stages (utils/trace.py,
+        #: ``Span.stage_ms``), one series a stage resolved here.
+        self._op_stages = self.collector.histogram(
+            METRIC_ZK_OP_STAGE,
+            'Client op latency by stage, milliseconds (send | remote | '
+            'ingest | resume)', buckets=STAGE_BUCKETS).rows('stage',
+                                                           OP_STAGES)
         #: Bounded in-memory span ring (utils/trace.py): one span per
         #: op, xid-correlated through the connection and stamped with
         #: the reply zxid.  Injectable so chaos campaigns and tests can
@@ -549,7 +567,7 @@ class Client(FSM):
         error propagates."""
         span = self.trace.start(pkt['opcode'], pkt.get('path'))
         try:
-            req = conn.request(pkt)
+            req = conn.request(pkt, span)
         except BaseException as e:
             span.finish(status='abandoned',
                         error=getattr(e, 'code', None)
@@ -561,9 +579,7 @@ class Client(FSM):
             # the request is already pending here, so the connection
             # settles this span on every teardown path; the getter
             # below cannot raise past it
-            # zkanalyze: ignore[span-leak] plain getter; req pending
             span.session_id = conn.session.get_session_id()
-        req.span = span
         return req.as_future(), span
 
     async def _await_op(self, fut: asyncio.Future, opcode: str,
@@ -578,9 +594,13 @@ class Client(FSM):
         teardown paths still settle it exactly once internally.
 
         Every completion path (reply, error, deadline) records the
-        elapsed time into the per-op latency histogram."""
+        elapsed time into the per-op latency histogram: from the span's
+        call stamp to the resumption here, which ends the op's stages
+        (each observed where the op reached it)."""
         ms = self.op_timeout if deadline is _USE_DEFAULT else deadline
-        t0 = time.monotonic()
+        t0 = span._t0 if span is not None else time.perf_counter()
+        if _trace.profiler_ranges:
+            _trace.op_switch(None)      # the op's synchronous head ends
         try:
             if ms is None:
                 return await fut
@@ -592,10 +612,19 @@ class Client(FSM):
                                 error='DEADLINE_EXCEEDED')
                 raise ZKDeadlineError(opcode, path, ms) from None
         finally:
-            self._op_latency.observe(
-                (time.monotonic() - t0) * 1000.0, {'op': opcode})
-            if self.on_op is not None and span is not None:
-                self.on_op(span)
+            t = time.perf_counter()
+            if _trace.profiler_ranges:
+                _trace.op_switch('zk.reply')
+            series = self._op_latency_series.get(opcode)
+            if series is None:
+                series = self._op_latency_series[opcode] = \
+                    self._op_latency.series({'op': opcode})
+            series.observe((t - t0) * 1000.0)
+            if span is not None:
+                span.t_resumed = t
+                self._op_stages.observe_each(span.stage_ms())
+                if self.on_op is not None:
+                    self.on_op(span)
 
     # -- the read plane (README "Read plane") --
 
@@ -614,9 +643,15 @@ class Client(FSM):
                                path: str | None, deadline) -> dict:
         """One request on the primary connection (the legacy path):
         returns the full reply packet."""
-        conn = self._conn_or_raise()
-        fut, span = self._start_op(conn, pkt)
-        return await self._await_op(fut, opcode, path, deadline, span)
+        rng = _trace.profiler_ranges and _trace.op_open()
+        try:
+            conn = self._conn_or_raise()
+            fut, span = self._start_op(conn, pkt)
+            return await self._await_op(fut, opcode, path, deadline,
+                                        span)
+        finally:
+            if rng:
+                _trace.op_switch(None)
 
     async def _write_op(self, pkt: dict, opcode: str,
                         path: str | None, deadline) -> dict:
@@ -635,11 +670,9 @@ class Client(FSM):
         the pending table."""
         backoff = None
         while True:
-            conn = self._conn_or_raise()
-            fut, span = self._start_op(conn, dict(pkt))
             try:
-                return await self._await_op(fut, opcode, path,
-                                            deadline, span)
+                return await self._primary_request(dict(pkt), opcode,
+                                                   path, deadline)
             except ZKThrottledError:
                 if backoff is None:
                     backoff = self._retry_policy.backoff(
@@ -772,7 +805,14 @@ class Client(FSM):
                         error=getattr(e, 'code', None)
                         or type(e).__name__)
             raise
-        return await self._await_op(fut, 'PING', None, deadline, span)
+        # ping's head is short: the op range covers its await's edges
+        rng = _trace.profiler_ranges and _trace.op_open()
+        try:
+            return await self._await_op(fut, 'PING', None, deadline,
+                                        span)
+        finally:
+            if rng:
+                _trace.op_switch(None)
 
     async def list(self, path: str,
                    deadline=_USE_DEFAULT) -> tuple[list[str], Stat]:

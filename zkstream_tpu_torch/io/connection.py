@@ -25,6 +25,7 @@ from ..protocol import consts
 from ..protocol.errors import ZKError, ZKPingTimeoutError, \
     ZKProtocolError, ZKThrottledError
 from ..protocol.framing import PacketCodec
+from ..utils import trace as _trace
 from ..utils.aio import set_nodelay
 from ..utils.events import EventEmitter
 from ..utils.fsm import FSM
@@ -95,7 +96,14 @@ class _SocketProtocol(asyncio.Protocol):
         self._conn.emit('sockConnect')
 
     def data_received(self, data: bytes) -> None:
-        self._conn._sock_data(data)
+        if _trace.profiler_ranges:
+            h = _trace.range_enter('zk.read')
+            try:
+                self._conn._sock_data(data)
+            finally:
+                _trace.range_exit(h)
+        else:
+            self._conn._sock_data(data)
 
     def eof_received(self) -> bool:
         self._conn.emit('sockEnd')
@@ -143,6 +151,15 @@ class ZKConnection(FSM):
         #: xid -> ZKRequest for everything awaiting a reply
         #: (reference: zcf_reqs).
         self.reqs: dict[int, ZKRequest] = {}
+        #: ``time.perf_counter`` when the inbound buffer holding the
+        #: next reply last went from empty to non-empty: the codec's
+        #: on the per-socket drain, the ingest slot's (io/ingest.py
+        #: ``feed``) on the batched one.  A routed reply's span takes
+        #: it as ``t_rx`` (utils/trace.py, op stages).
+        self._rx_t = 0.0
+        #: Op spans whose frames sit in the send plane's cork: its
+        #: next flush stamps their ``t_sent`` and empties the list.
+        self._corked_spans: list = []
         self._dial_task: asyncio.Task | None = None
         #: Dial/handshake latency instrumentation: t0 set on entering
         #: 'connecting' (or on promote for a parked spare), observed
@@ -163,7 +180,8 @@ class ZKConnection(FSM):
                              collector=collector, plane='client',
                              tier=getattr(client, 'transport_tier',
                                           None),
-                             transport_fn=lambda: self.transport)
+                             transport_fn=lambda: self.transport,
+                             spans=self._corked_spans)
         self._connect_latency = None
         if collector is not None:
             self._connect_latency = collector.histogram(
@@ -352,12 +370,20 @@ class ZKConnection(FSM):
         S.interval(ping_interval, self.ping)
 
         def deliver(pkts, err):
-            for pkt in pkts:
-                self.emit('packet', pkt)
-                # Notifications are the session's business
-                # (reference: lib/connection-fsm.js:223-224).
-                if pkt['opcode'] != 'NOTIFICATION':
-                    self.process_reply(pkt)
+            # the port's zk.route range (utils/trace.py): the replies'
+            # routing through their futures' settle
+            h = (_trace.range_enter('zk.route') if _trace.profiler_ranges
+                 else None)
+            try:
+                for pkt in pkts:
+                    self.emit('packet', pkt)
+                    # Notifications are the session's business
+                    # (reference: lib/connection-fsm.js:223-224).
+                    if pkt['opcode'] != 'NOTIFICATION':
+                        self.process_reply(pkt)
+            finally:
+                if h is not None:
+                    _trace.range_exit(h)
             if err is not None:
                 self.last_error = err
                 S.goto_state('error')
@@ -385,26 +411,15 @@ class ZKConnection(FSM):
                 # point of the pass-through.  Slot residue cannot
                 # exist in this regime (register/flip keep it in the
                 # codec), so no splice is needed.
-                err = None
-                try:
-                    pkts = self.codec.decode(data)
-                except ZKProtocolError as e:
-                    pkts = getattr(e, 'packets', [])
-                    err = e
+                pkts, err = self._decode(data)
                 ing.note_direct(len(data), len(pkts))
                 deliver(pkts, err)
             S.on(self, 'sockData', on_sock)
             S.on(self, 'ingestDeliver', deliver)
         else:
             def on_data(data):
-                err = None
-                try:
-                    pkts = self.codec.decode(data)
-                except ZKProtocolError as e:
-                    # Deliver packets decoded before the bad frame first.
-                    pkts = getattr(e, 'packets', [])
-                    err = e
-                deliver(pkts, err)
+                # packets decoded before a bad frame are delivered first
+                deliver(*self._decode(data))
             S.on(self, 'sockData', on_data)
 
         def on_error(err):
@@ -452,10 +467,9 @@ class ZKConnection(FSM):
                 pass
 
         def on_data(data):
-            try:
-                pkts = self.codec.decode(data)
-            except ZKProtocolError as e:
-                self.last_error = e
+            pkts, err = self._decode(data)
+            if err is not None:
+                self.last_error = err
                 S.goto_state('closed')
                 return
             for pkt in pkts:
@@ -550,6 +564,20 @@ class ZKConnection(FSM):
         else:
             self.faults.rx(self, data)
 
+    def _decode(self, data: bytes) -> tuple:
+        """Socket bytes through the codec: ``(packets, error)``, the
+        packets decoded before a bad frame beside its error.  Stamps
+        ``_rx_t`` when the codec held no bytes of an earlier read, so a
+        reply routed from them takes the read time of its oldest
+        byte."""
+        codec = self.codec
+        if not codec.pending():
+            self._rx_t = time.perf_counter()
+        try:
+            return codec.decode(data), None
+        except ZKProtocolError as e:
+            return getattr(e, 'packets', []), e
+
     def _tx_write(self, data: bytes) -> None:
         """The send plane's sink: one coalesced buffer per flush."""
         if self.transport is not None:
@@ -579,7 +607,8 @@ class ZKConnection(FSM):
 
     def process_reply(self, pkt: dict) -> None:
         """Route a reply to its pending request
-        (reference: lib/connection-fsm.js:353-376)."""
+        (reference: lib/connection-fsm.js:353-376); its span settles
+        here, stamped with the reply's read and routing times."""
         xid = pkt['xid']
         if xid > 0:
             # One reply settles a normal request; dropping it here
@@ -593,12 +622,15 @@ class ZKConnection(FSM):
                        xid, pkt['err'])
         if req is None:
             return
+        span = req.span
         if pkt['err'] == 'OK':
-            _finish_span(req, zxid=pkt.get('zxid'))
+            if span is not None:
+                span.finish(zxid=pkt.get('zxid'), t_rx=self._rx_t)
             req.emit('reply', pkt)
         else:
-            _finish_span(req, zxid=pkt.get('zxid'), status='error',
-                         error=pkt['err'])
+            if span is not None:
+                span.finish(zxid=pkt.get('zxid'), status='error',
+                            error=pkt['err'], t_rx=self._rx_t)
             # the overloaded-member bounce gets its typed class so
             # the client's write path can key its backoff+retry on
             # isinstance instead of string-matching the code
@@ -607,9 +639,11 @@ class ZKConnection(FSM):
                    else ZKError(pkt['err']))
             req.emit('error', err, pkt)
 
-    def request(self, pkt: dict) -> ZKRequest:
+    def request(self, pkt: dict, span=None) -> ZKRequest:
         """Send a normal (positive-xid) request
-        (reference: lib/connection-fsm.js:384-408)."""
+        (reference: lib/connection-fsm.js:384-408).  ``span``, the
+        client's trace span of the op, rides the request and is
+        stamped when the send plane hands its frame over."""
         if not self.is_in_state('connected'):
             raise ZKProtocolError('CONNECTION_LOSS',
                 'Client must be connected to send requests')
@@ -618,6 +652,9 @@ class ZKConnection(FSM):
         self.reqs[pkt['xid']] = req
         self.log.trace('sent request xid %d opcode %s',
                        pkt['xid'], pkt['opcode'])
+        if span is not None:
+            req.span = span
+            self._corked_spans.append(span)
         self._write(pkt)
         return req
 

@@ -268,6 +268,19 @@ class FleetIngest:
             'Ingest tick (batched drain) duration, milliseconds')
         self.ticks_frag = 0
         self.frames_routed = 0
+        #: seconds of device ticks by phase (``zkstream_ingest_phase_s``):
+        #: the streams copied into the staging rows (``_fill_staging``);
+        #: the device half (the rest of ``_run_step``: copies in, the
+        #: replay, the readback and its synchronize); ``_unpack``; and
+        #: the routing (``_route_stream``, assembly included).  The
+        #: first, third and fourth are the tick's host half.  Of the
+        #: routing, ``assemble_s`` went to building the packets
+        #: (``_assemble_stream``, the C codec's pass included).
+        self.staging_s = 0.0
+        self.device_s = 0.0
+        self.unpack_s = 0.0
+        self.route_s = 0.0
+        self.assemble_s = 0.0
         self.frag_guard = (bypass_bytes > 0 if frag_guard is None
                            else frag_guard)
         self._ema_frames: float | None = None
@@ -337,6 +350,10 @@ class FleetIngest:
                 slot[1].clear()
             self._deliver_direct(conn, data)
             return
+        if not slot[1]:
+            # the read time of the oldest byte the slot holds: the
+            # routed replies' ``t_rx`` (io/connection.py)
+            conn._rx_t = time.perf_counter()
         slot[1].extend(data)
         self._schedule()
 
@@ -536,6 +553,14 @@ class FleetIngest:
             collector.gauge(prefix + name,
                             (lambda a=attr: getattr(self, a)),
                             help_text)
+        collector.multi_gauge(
+            prefix + 'zkstream_ingest_phase_s',
+            lambda: {(('phase', 'staging'),): self.staging_s,
+                     (('phase', 'device'),): self.device_s,
+                     (('phase', 'unpack'),): self.unpack_s,
+                     (('phase', 'route'),): self.route_s},
+            'seconds of device ticks by phase (staging | device | '
+            'unpack | route)')
         # swap the standalone tick-duration histogram for a collector-
         # registered one; samples observed before binding stay with the
         # discarded instance (bind at setup time)
@@ -882,12 +907,17 @@ class FleetIngest:
             raise RuntimeError('tick bucket %r failed to warm'
                                % (key,)) from bk
         self.ticks += 1
-        st, bd = self._unpack(*self._run_step(bk, active))
+        out = self._run_step(bk, active)
+        t0 = time.perf_counter()
+        st, bd = self._unpack(*out)
+        t1 = time.perf_counter()
 
         retick = False
         for i, (conn, buf) in enumerate(active):
             if self._route_stream(conn, buf, st, bd, i):
                 retick = True
+        self.unpack_s += t1 - t0
+        self.route_s += time.perf_counter() - t1
         if retick:
             self._schedule()
 
@@ -936,20 +966,26 @@ class FleetIngest:
         import torch
 
         B = len(active)
+        t0 = time.perf_counter()
         self._fill_staging(bk, active)
+        t1 = time.perf_counter()
+        self.staging_s += t1 - t0
         cuda = self.device.type == 'cuda'
         if cuda:
             bk.dev_buf[:B].copy_(bk.stage_buf[:B], non_blocking=True)
             bk.dev_lens.copy_(bk.stage_lens, non_blocking=True)
         ints, byts = self._launch(bk)
         if not cuda:
-            return ints.numpy(), None if byts is None else byts.numpy()
-        bk.readback.copy_(ints, non_blocking=True)
-        if byts is not None:
-            bk.readback_bytes.copy_(byts, non_blocking=True)
-        torch.cuda.current_stream(self.device).synchronize()
-        return (bk.readback.numpy(),
-                None if byts is None else bk.readback_bytes.numpy())
+            out = ints.numpy(), None if byts is None else byts.numpy()
+        else:
+            bk.readback.copy_(ints, non_blocking=True)
+            if byts is not None:
+                bk.readback_bytes.copy_(byts, non_blocking=True)
+            torch.cuda.current_stream(self.device).synchronize()
+            out = (bk.readback.numpy(),
+                   None if byts is None else bk.readback_bytes.numpy())
+        self.device_s += time.perf_counter() - t1
+        return out
 
     def _route_stream(self, conn, buf, st, bd, i: int) -> bool:
         """Deliver stream ``i``'s decoded tick results to its
@@ -966,7 +1002,9 @@ class FleetIngest:
             # with the pre-error packets attached.
             self._deliver_fallback(conn, buf)
             return False
+        t0 = time.perf_counter()
         pkts, err = self._assemble_stream(conn, buf, st, bd, i, n)
+        self.assemble_s += time.perf_counter() - t0
         resid = int(st.resid[i])
         if resid:
             del buf[:resid]

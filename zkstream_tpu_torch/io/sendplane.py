@@ -62,7 +62,9 @@ requests all live with one shard.
 from __future__ import annotations
 
 import os
+import time
 
+from ..utils import trace as _trace
 from ..utils.aio import ambient_loop
 from .transport import METRIC_FLUSH_SYSCALLS
 
@@ -107,14 +109,24 @@ class SendPlane:
     __slots__ = ('_write', '_chunks', '_pending', '_scheduled',
                  'enabled', 'max_bytes', '_frames_hist', '_bytes_hist',
                  '_labels', '_barrier', '_ledger', '_tier', '_entry',
-                 '_syscall_ctr', '_transport_fn')
+                 '_syscall_ctr', '_transport_fn', '_spans', 'log_mark')
 
     def __init__(self, write, *, enabled: bool | None = None,
                  max_bytes: int | None = None,
                  collector=None, plane: str = 'client',
                  barrier=None, ledger=None,
-                 tier=None, transport_fn=None):
+                 tier=None, transport_fn=None, spans: list | None = None):
         self._write = write
+        #: Optional list of the client op spans (utils/trace.py) whose
+        #: frames are corked here, kept by the connection: the flush
+        #: that hands them to the transport stamps their ``t_sent``
+        #: and empties the list (reused, never replaced).
+        self._spans = spans
+        #: Server planes: the WAL position just past this connection's
+        #: newest appended txn (the connection sets it), handed to the
+        #: barrier so it can tell a hold for the connection's own
+        #: writes from one for other sessions' (server/persist.py).
+        self.log_mark = 0
         #: Optional io/transport.TransportTier + the live-transport
         #: accessor it resolves an fd from: flushed chunk lists defer
         #: to the tier's per-tick batched submission instead of being
@@ -201,6 +213,8 @@ class SendPlane:
                 self._observe(1, len(data))
                 self._count_legacy()
                 self._write(data)
+                if self._spans:
+                    self._stamp_sent()
                 return
             # write-through still rides the gate: the frame corks for
             # exactly one (usually immediate) gated flush
@@ -257,11 +271,13 @@ class SendPlane:
                 # short-circuit): that is loop-blocked durability time
                 led.enter('fsync_gate')
                 try:
-                    clear = self._barrier.gate_flush(self.flush_now)
+                    clear = self._barrier.gate_flush(self.flush_now,
+                                                     self.log_mark)
                 finally:
                     led.exit()
             else:
-                clear = self._barrier.gate_flush(self.flush_now)
+                clear = self._barrier.gate_flush(self.flush_now,
+                                                 self.log_mark)
             if not clear:
                 return          # durability pending: released later
         self._write_out()
@@ -286,40 +302,62 @@ class SendPlane:
         self._write_out(hard=True)
 
     def _write_out(self, hard: bool = False) -> None:
-        if not self._chunks:
-            # a hard flush must still drain bytes an earlier flush
-            # (cap hit, barrier release) parked in the tier entry —
-            # or a direct write issued right after would overtake them
-            if hard and self._entry is not None:
-                self._tier.drain(self._entry)
-            return
-        chunks = self._chunks
-        n = len(chunks)
-        size = self._pending
-        self._chunks = []
-        self._pending = 0
-        self._observe(n, size)
-        entry = self._entry
-        if entry is not None and self.enabled:
-            # deferred to the tier's tick submission (one batched
-            # syscall chain covering every dirty connection); the
-            # tier accounts the syscalls and the ledger's cork_flush.
-            # A hard flush drains this entry synchronously instead.
-            self._tier.enqueue(entry, chunks, size)
-            if hard:
-                self._tier.drain(entry)
-            return
-        self._count_legacy()
-        led = self._ledger
-        data = chunks[0] if n == 1 else b''.join(chunks)
-        if led is not None:
-            led.enter('cork_flush')
-            try:
-                self._write(data)
-            finally:
-                led.exit()
-        else:
-            self._write(data)
+        # the port's zk.flush range (utils/trace.py) covers the write
+        # here; behind a transport tier, the tier's submission
+        h = (_trace.range_enter('zk.flush')
+             if _trace.profiler_ranges and (self._entry is None
+                                           or not self.enabled)
+             else None)
+        try:
+            if not self._chunks:
+                # a hard flush must still drain bytes an earlier flush
+                # (cap hit, barrier release) parked in the tier entry —
+                # or a direct write issued right after would overtake
+                # them
+                if hard and self._entry is not None:
+                    self._tier.drain(self._entry)
+                return
+            chunks = self._chunks
+            n = len(chunks)
+            size = self._pending
+            self._chunks = []
+            self._pending = 0
+            self._observe(n, size)
+            entry = self._entry
+            if entry is not None and self.enabled:
+                # deferred to the tier's tick submission (one batched
+                # syscall chain covering every dirty connection); the
+                # tier accounts the syscalls and the ledger's
+                # cork_flush.  A hard flush drains this entry
+                # synchronously instead.
+                self._tier.enqueue(entry, chunks, size)
+                if hard:
+                    self._tier.drain(entry)
+            else:
+                self._count_legacy()
+                led = self._ledger
+                data = chunks[0] if n == 1 else b''.join(chunks)
+                if led is not None:
+                    led.enter('cork_flush')
+                    try:
+                        self._write(data)
+                    finally:
+                        led.exit()
+                else:
+                    self._write(data)
+            if self._spans:
+                self._stamp_sent()
+        finally:
+            if h is not None:
+                _trace.range_exit(h)
+
+    def _stamp_sent(self) -> None:
+        """Every corked op's frame has just been handed over."""
+        t = time.perf_counter()
+        spans = self._spans
+        for span in spans:
+            span.t_sent = t
+        spans.clear()
 
     def reset(self) -> None:
         """Drop corked frames without writing (connection aborted:
@@ -327,6 +365,8 @@ class SendPlane:
         the transport tier goes with them."""
         self._chunks = []
         self._pending = 0
+        if self._spans:
+            self._spans.clear()
         if self._entry is not None:
             self._tier.discard(self._entry)
 

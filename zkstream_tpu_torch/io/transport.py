@@ -70,6 +70,7 @@ import logging
 import os
 import sys
 
+from ..utils import trace as _trace
 from ..utils.aio import ambient_loop
 
 log = logging.getLogger('zkstream_tpu_torch.transport')
@@ -405,64 +406,72 @@ class TransportTier:
         """Resolve each entry's fd and submit the whole batch through
         the backend; anything raw-ineligible (no socket, transport
         already buffering, closing) routes through its asyncio sink —
-        the FIFO transport buffer keeps ordering either way."""
-        batch_fds: list[int] = []
-        batch_chunks: list[list[bytes]] = []
-        raw_entries: list[tuple[_Entry, list[bytes], int]] = []
-        for e in entries:
-            chunks = e.chunks
-            if not chunks:
-                continue        # drained hard mid-tick, or reset
-            # take the chunks NOW: a hard-drained entry re-dirtied in
-            # the same tick appears in `entries` twice, and only an
-            # emptied entry makes the second visit a no-op
-            nbytes = e.nbytes
-            e.chunks = []
-            e.nbytes = 0
-            fd = -1
-            t = e.transport_fn()
-            if t is not None:
-                # fast paths over the selector transport's private
-                # state: is_closing() is an attribute read behind a
-                # method call, and get_write_buffer_size() allocates
-                # (sum(map(len, deque))) — at 10k dirty connections
-                # per tick both matter.  Transports without the
-                # attributes (uvloop, proactor) take the public API.
-                closing = getattr(t, '_closing', None)
-                if closing is None:
-                    closing = t.is_closing()
-                if not closing:
-                    wbuf = getattr(t, '_buffer', None)
-                    if (not wbuf if wbuf is not None
-                            else t.get_write_buffer_size() == 0):
-                        fd = e.resolve_fd(t)
-            if fd < 0:
-                self._count(1, 'asyncio')
-                e.write(chunks[0] if len(chunks) == 1
-                        else b''.join(chunks))
-                continue
-            batch_fds.append(fd)
-            batch_chunks.append(chunks)
-            raw_entries.append((e, chunks, nbytes))
-        if not batch_fds:
-            return
-        led = self.ledger
-        if led is not None:
-            led.enter('cork_flush')
+        the FIFO transport buffer keeps ordering either way.  The
+        port's ``zk.flush`` profiler range covers it, as it covers a
+        send plane's own writes without a tier (utils/trace.py)."""
+        h = (_trace.range_enter('zk.flush') if _trace.profiler_ranges
+             else None)
         try:
-            results, nsys = self._submit_raw(batch_fds, batch_chunks)
-        finally:
+            batch_fds: list[int] = []
+            batch_chunks: list[list[bytes]] = []
+            raw_entries: list[tuple[_Entry, list[bytes], int]] = []
+            for e in entries:
+                chunks = e.chunks
+                if not chunks:
+                    continue        # drained hard mid-tick, or reset
+                # take the chunks NOW: a hard-drained entry re-dirtied in
+                # the same tick appears in `entries` twice, and only an
+                # emptied entry makes the second visit a no-op
+                nbytes = e.nbytes
+                e.chunks = []
+                e.nbytes = 0
+                fd = -1
+                t = e.transport_fn()
+                if t is not None:
+                    # fast paths over the selector transport's private
+                    # state: is_closing() is an attribute read behind a
+                    # method call, and get_write_buffer_size() allocates
+                    # (sum(map(len, deque))) — at 10k dirty connections
+                    # per tick both matter.  Transports without the
+                    # attributes (uvloop, proactor) take the public API.
+                    closing = getattr(t, '_closing', None)
+                    if closing is None:
+                        closing = t.is_closing()
+                    if not closing:
+                        wbuf = getattr(t, '_buffer', None)
+                        if (not wbuf if wbuf is not None
+                                else t.get_write_buffer_size() == 0):
+                            fd = e.resolve_fd(t)
+                if fd < 0:
+                    self._count(1, 'asyncio')
+                    e.write(chunks[0] if len(chunks) == 1
+                            else b''.join(chunks))
+                    continue
+                batch_fds.append(fd)
+                batch_chunks.append(chunks)
+                raw_entries.append((e, chunks, nbytes))
+            if not batch_fds:
+                return
+            led = self.ledger
             if led is not None:
-                led.exit()
-        self.submissions += 1
-        self._count(nsys, self.backend)
-        if self._depth_hist is not None:
-            self._depth_hist.observe(
-                len(batch_fds), {'plane': self.plane,
-                                 'backend': self.backend})
-        for (e, chunks, nbytes), res in zip(raw_entries, results):
-            if res != nbytes:       # the hot path writes everything
-                self._settle(e, chunks, nbytes, res)
+                led.enter('cork_flush')
+            try:
+                results, nsys = self._submit_raw(batch_fds, batch_chunks)
+            finally:
+                if led is not None:
+                    led.exit()
+            self.submissions += 1
+            self._count(nsys, self.backend)
+            if self._depth_hist is not None:
+                self._depth_hist.observe(
+                    len(batch_fds), {'plane': self.plane,
+                                     'backend': self.backend})
+            for (e, chunks, nbytes), res in zip(raw_entries, results):
+                if res != nbytes:       # the hot path writes everything
+                    self._settle(e, chunks, nbytes, res)
+        finally:
+            if h is not None:
+                _trace.range_exit(h)
 
     def _settle(self, entry: _Entry, chunks: list[bytes],
                 nbytes: int, res: int) -> None:

@@ -31,6 +31,8 @@ tests drive it on 8 CPU shards with live in-process connections
 
 from __future__ import annotations
 
+import time
+
 import numpy as np
 import torch
 
@@ -202,14 +204,20 @@ class MeshFleetIngest(FleetIngest):
     def _run_step(self, bk: _MeshBucket, active):
         """Stage the active streams, run the sharded tick (one graph
         replay on one card) and read back the packed ``(ints,
-        bytes-or-None)`` as numpy."""
+        bytes-or-None)`` as numpy; timed into the staging and device
+        phases as ``FleetIngest._run_step`` is."""
+        t0 = time.perf_counter()
         self._fill_staging(bk, active)
+        t1 = time.perf_counter()
+        self.staging_s += t1 - t0
         bk.place(len(active))
         out = self._launch(bk)
         ints, byts = out if self.body_mode == 'device' else (out, None)
-        return (self._local_view(ints, bk.readback),
-                None if byts is None
-                else self._local_view(byts, bk.readback_bytes))
+        out = (self._local_view(ints, bk.readback),
+               None if byts is None
+               else self._local_view(byts, bk.readback_bytes))
+        self.device_s += time.perf_counter() - t1
+        return out
 
     def _unpack(self, ints, byts):
         g = ints[0, -_N_GLOBALS:]

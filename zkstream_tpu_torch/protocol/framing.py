@@ -241,6 +241,10 @@ class PacketCodec:
             self.xid_map[pkt['xid']] = pkt['opcode']
         return frame(w.to_bytes())
 
+    def pending(self) -> int:
+        """Bytes buffered toward the next frame."""
+        return len(self._decoder._buf)
+
     def take_pending(self) -> bytes:
         """See :meth:`FrameDecoder.take_pending`."""
         return self._decoder.take_pending()

@@ -854,7 +854,19 @@ class WriteAheadLog:
         self._synced_appends = 0
         self._sync_scheduled = False
         self._inflight = False        # a group fsync is on the executor
-        self._waiters: list = []      # send-plane releases awaiting it
+        #: send-plane releases awaiting it, each with the time its
+        #: flush was first parked: ``(release, t_park)``
+        self._waiters: list = []
+        #: The ack gate's holds (the mntr ``zk_wal_gate_*`` rows):
+        #: flushes :meth:`gate_flush` parked; of them, those whose
+        #: connection had no txn of its own beyond the fsynced ones
+        #: (held for other sessions' writes); and the seconds from
+        #: each park to the release that re-flushed it.  A flush its
+        #: release parks again stays one hold (``_carry``).
+        self.gate_holds = 0
+        self.gate_holds_foreign = 0
+        self.gate_hold_s = 0.0
+        self._carry: float | None = None
         #: EWMA of measured device sync latency, ms (None until the
         #: first sync) — drives the FAST_SYNC_MS short-circuit
         self._sync_ewma_ms: float | None = None
@@ -1057,7 +1069,7 @@ class WriteAheadLog:
 
     # -- the ack gate (group commit riding the send-plane cork) --
 
-    def gate_flush(self, release) -> bool:
+    def gate_flush(self, release, mark: int | None = None) -> bool:
         """The send-plane's durability gate (io/sendplane.py
         ``barrier``): True when every appended txn is already covered
         by a completed fsync attempt — the corked acks may leave.
@@ -1066,7 +1078,13 @@ class WriteAheadLog:
         sync-thread shape), and ``release`` re-flushes when it
         completes.  ``sync='never'`` forfeits the gate;
         ``sync='always'`` already fsynced inside ``append`` and only
-        re-syncs here after an earlier failure."""
+        re-syncs here after an earlier failure.
+
+        ``mark`` is the flushing connection's log position: the
+        :attr:`appends` count just past its newest txn (the plane's
+        ``log_mark``).  A parked flush whose mark the fsyncs already
+        cover waits only for other sessions' writes, and counts in
+        :attr:`gate_holds_foreign`."""
         if self._closed or self.sync == 'never':
             return True
         if self._durable >= self._written \
@@ -1075,11 +1093,19 @@ class WriteAheadLog:
         if self.sync == 'always':
             self.sync_now()
             return True
+        # read before the sync below: a release it drains inline
+        # restores the carry of its own hold
+        carry = self._carry
         self._ensure_group_sync()     # may complete inline (fast dev)
         if self._durable >= self._written \
                 or self._attempted >= self._written:
             return True
-        self._waiters.append(release)
+        if carry is None:
+            carry = time.perf_counter()
+            self.gate_holds += 1
+            if mark is not None and mark <= self._synced_appends:
+                self.gate_holds_foreign += 1
+        self._waiters.append((release, carry))
         return False
 
     def _ensure_group_sync(self) -> None:
@@ -1185,11 +1211,18 @@ class WriteAheadLog:
 
     def _drain_waiters(self) -> None:
         waiters, self._waiters = self._waiters, []
-        for release in waiters:
+        now = time.perf_counter()
+        for release, t_park in waiters:
+            prev, self._carry = self._carry, t_park
             try:
                 release()
             except Exception:  # pragma: no cover - plane teardown
                 log.exception('WAL gate release failed')
+            finally:
+                self._carry = prev
+            parked = self._waiters
+            if not (parked and parked[-1][1] is t_park):
+                self.gate_hold_s += now - t_park
 
     def sync_for_flush(self) -> None:
         """The *synchronous* barrier: whatever the caller is about to

@@ -377,11 +377,12 @@ class QuorumGate:
 
     # -- the ack gate (composed with the WAL by CommitBarrier) --
 
-    def gate_flush(self, release) -> bool:
+    def gate_flush(self, release, mark: int | None = None) -> bool:
         """True when every committed txn is majority-held — the
         corked acks may leave.  Otherwise the flush stays corked,
         ``release`` re-flushes when the quorum floor reaches the
-        current zxid, and the degrade timer bounds the wait."""
+        current zxid, and the degrade timer bounds the wait.  ``mark``
+        is the WAL gate's (its holds' accounting), unused here."""
         if not self.enabled:
             return True
         if self.quorum_zxid() >= self.db.zxid \
@@ -486,10 +487,11 @@ class CommitBarrier:
         self.wal = wal
         self.quorum = quorum
 
-    def gate_flush(self, release) -> bool:
+    def gate_flush(self, release, mark: int | None = None) -> bool:
         # call BOTH gates unconditionally: the fsync and the quorum
         # round-trip overlap instead of serializing
-        wal_clear = self.wal is None or self.wal.gate_flush(release)
+        wal_clear = (self.wal is None
+                     or self.wal.gate_flush(release, mark))
         q_clear = (self.quorum is None
                    or self.quorum.gate_flush(release))
         return wal_clear and q_clear

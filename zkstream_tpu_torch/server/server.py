@@ -850,6 +850,8 @@ class ServerConnection:
         self.db.touch_session(self.session)
         op = pkt['opcode']
         xid = pkt['xid']
+        wal = getattr(self.db, 'wal', None)
+        appends = wal.appends if wal is not None else 0
         try:
             handler = getattr(self, '_op_' + op.lower(), None)
             if handler is None:
@@ -861,6 +863,10 @@ class ServerConnection:
             # where the protocol says so (handled inside the op); other
             # failures just carry the code.
             self._reply(xid, op, err=e.code)
+        if wal is not None and wal.appends != appends:
+            # this connection's newest txn: the ack gate tells its own
+            # holds from those for other sessions' writes by it
+            self._tx.log_mark = wal.appends
 
     def _op_ping(self, pkt: dict) -> None:
         self._reply(pkt['xid'], 'PING')
@@ -1771,6 +1777,9 @@ class ZKServer:
             ('zk_wal_fsyncs', wal.fsyncs),
             ('zk_wal_sync_errors', wal.sync_errors),
             ('zk_wal_snapshots', wal.snapshots_taken),
+            ('zk_wal_gate_holds', wal.gate_holds),
+            ('zk_wal_gate_hold_ms_sum', wal.gate_hold_s * 1000.0),
+            ('zk_wal_gate_holds_foreign', wal.gate_holds_foreign),
         ]
         # quorum-commit rows (server/replication.py QuorumGate): the
         # majority floor, degraded (quorum-unconfirmed) releases and
@@ -1833,13 +1842,20 @@ class ZKServer:
                 ('zk_blackbox_bytes', bb.bytes_written),
             ]
         if self.ledger is not None:
-            tick_rows.append(('zk_tick_count', self.ledger.ticks))
+            led = self.ledger
+            tick_rows.append(('zk_tick_count', led.ticks))
+            # the cumulative sums beside the p99s: two scrapes'
+            # difference is a window's busy-tick time, split by phase
+            tick_rows.append(('zk_tick_ms_sum', led.tick_hist.sum()))
             for phase in TickLedger.PHASES:
-                p99 = self.ledger.phase_p99(phase)
+                p99 = led.phase_p99(phase)
                 if p99 is not None:
                     tick_rows.append(
                         ('zk_tick_phase_ms_p99{phase="%s"}' % (phase,),
                          round(p99, 4)))
+                    tick_rows.append(
+                        ('zk_tick_phase_ms_sum{phase="%s"}' % (phase,),
+                         led.phase_hist.sum({'phase': phase})))
         return [
             ('zk_version', 'zkstream_tpu_torch'),
             ('zk_uptime_ms',

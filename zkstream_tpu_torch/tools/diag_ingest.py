@@ -4,25 +4,30 @@ the JAX package's ``tools/diag_ingest.py``.
 Runs the bench's create workload through a host-body ``FleetIngest``
 on ``--device`` (``bypass_bytes=0``, ``max_frames=16``, as the
 reference) with every tick phase timed, then prints the tick
-distribution, the per-bucket step times and the worst ticks with their
-batch shapes — enough to tell bucket warm-up churn from the device
-half's pacing from host assembly cost.  The phases, wrapped on the
-class for the run and restored after it (``io/ingest.py`` is not
-edited):
+distribution, the per-bucket step times and the worst device halves
+with their batch shapes — enough to tell bucket warm-up churn from the
+device half's pacing from host assembly cost.  The phases of the device
+ticks in the measured loop:
 
-  staging   ``_fill_staging``: the streams copied into the bucket's rows
+  staging   the ingest's ``staging_s``: the streams copied into the
+            bucket's rows (``_fill_staging``)
   h2d       the rest of ``_run_step`` up to ``_launch`` (the
             host-to-device copies, closed by a synchronize on the card)
   step      ``_launch``: on the card one replay of the bucket's CUDA
             graph (K1, the reductions and the pack), on the CPU the
             eager step; a synchronize closes it
   readback  the rest of ``_run_step`` (the pinned readback and its wait)
-  unpack    ``_unpack``
-  route     ``_route_stream`` (of which ``_assemble_stream``, of which
-            ``_assemble_ext``)
+  unpack    the ingest's ``unpack_s`` (``_unpack``)
+  route     the ingest's ``route_s`` (``_route_stream``), of which its
+            ``assemble_s`` built the packets (``_assemble_stream``; the
+            C codec's ``_assemble_ext`` where the connections carry it)
 
-and the interpreter's collector pauses (``gc.callbacks``), which land
-inside the other phases.
+The host phases are the ingest's own counters (``zkstream_ingest_phase_s``);
+only the device half is split here, by ``_run_step`` and ``_launch``
+wrapped on the class for the run and restored after it, with the
+synchronizes the ingest's hot path never takes.  The interpreter's
+collector pauses (``gc.callbacks``) land inside the other phases; those
+that fell inside a device half are reported as ``gc``.
 
 Usage: python -m zkstream_tpu_torch.tools.diag_ingest [clients]
            [ops_per_client] [--device cuda|cpu]
@@ -39,21 +44,24 @@ TICKS: list[dict] = []
 
 #: the non-overlapping parts of a device tick, in order
 PHASES = ('staging', 'h2d', 'step', 'readback', 'unpack', 'route')
+#: the ingest's counters of the host phases
+_COUNTERS = {'staging': 'staging_s', 'unpack': 'unpack_s',
+             'route': 'route_s', 'assemble': 'assemble_s'}
 
-#: the tick being timed (its phase dict, under ``tick``) and the step in
-#: flight's part boundaries (``fill``, ``h2d``, ``step``: clock readings)
-_cur: dict = {'tick': None}
+#: the device half in flight (its part sums, under ``half``) and the
+#: step's bounds (``h2d``, ``step``: clock readings)
+_cur: dict = {'half': None}
 
 
 def _add(phase: str, dt: float) -> None:
-    tick = _cur['tick']
-    if tick is not None:
-        tick[phase] = tick.get(phase, 0.0) + dt
+    half = _cur['half']
+    if half is not None:
+        half[phase] = half.get(phase, 0.0) + dt
 
 
 class _GcPauses:
     """Collector pauses while installed: their total seconds, and the
-    share that fell inside a tick (added to that tick as ``gc``)."""
+    share that fell inside a device half (added to it as ``gc``)."""
 
     def __init__(self):
         self.s, self._t = 0.0, 0.0
@@ -68,12 +76,11 @@ class _GcPauses:
 
 
 def instrument(FleetIngest):
-    """Time every tick phase of ``FleetIngest`` into ``TICKS``; returns
-    the function that restores the class."""
+    """Split every device half of ``FleetIngest`` into ``TICKS``;
+    returns the function that restores the class."""
     import torch
 
-    names = ('_tick', '_fill_staging', '_run_step', '_launch', '_unpack',
-             '_route_stream', '_assemble_stream', '_assemble_ext')
+    names = ('_run_step', '_launch')
     saved = {n: FleetIngest.__dict__[n] for n in names}
     orig = {n: getattr(FleetIngest, n) for n in names}
     now = time.perf_counter
@@ -82,33 +89,24 @@ def instrument(FleetIngest):
         if self.device.type == 'cuda':
             torch.cuda.synchronize(self.device)
 
-    def _tick(self):
-        n_bufs = sum(1 for _c, b in self._slots.values() if b)
-        nbytes = sum(len(b) for _c, b in self._slots.values())
-        phases = _cur['tick'] = {}
+    def _run_step(self, bk, active):
+        half = _cur['half'] = {}
+        staged = self.staging_s
         t0 = now()
         try:
-            orig['_tick'](self)
+            out = orig['_run_step'](self, bk, active)
         finally:
-            _cur['tick'] = None
-        TICKS.append({'kind': 'tick', 'dt': now() - t0, 'n_bufs': n_bufs,
-                      'nbytes': nbytes, 'ticks': self.ticks,
-                      'scalar': self.ticks_scalar, 'phases': phases})
-
-    def _fill_staging(bk, active):
-        orig['_fill_staging'](bk, active)
-        _cur['fill'] = now()
-
-    def _run_step(self, bk, active):
-        t0 = now()
-        out = orig['_run_step'](self, bk, active)
+            _cur['half'] = None
         t_end = now()
-        _add('staging', _cur['fill'] - t0)
-        _add('h2d', _cur['h2d'] - _cur['fill'])
-        _add('step', _cur['step'] - _cur['h2d'])
-        _add('readback', t_end - _cur['step'])
+        staging = self.staging_s - staged
+        half.update(h2d=_cur['h2d'] - t0 - staging,
+                    step=_cur['step'] - _cur['h2d'],
+                    readback=t_end - _cur['step'])
         TICKS.append({'kind': 'step_call', 'dt': t_end - t0,
-                      'shape': tuple(bk.stage_buf.shape)})
+                      'shape': tuple(bk.stage_buf.shape),
+                      'n_bufs': len(active),
+                      'nbytes': sum(len(b) for _c, b in active),
+                      'staging': staging, 'phases': half})
         return out
 
     def _launch(self, bk):
@@ -119,30 +117,21 @@ def instrument(FleetIngest):
         _cur['step'] = now()
         return out
 
-    def timed(name, phase):
-        fn = orig[name]
-
-        def wrapper(*a):
-            t0 = now()
-            try:
-                return fn(*a)
-            finally:
-                _add(phase, now() - t0)
-        return wrapper
-
-    FleetIngest._tick = _tick
-    FleetIngest._fill_staging = staticmethod(_fill_staging)
     FleetIngest._run_step = _run_step
     FleetIngest._launch = _launch
-    FleetIngest._unpack = timed('_unpack', 'unpack')
-    FleetIngest._route_stream = timed('_route_stream', 'route')
-    FleetIngest._assemble_stream = timed('_assemble_stream', 'assemble')
-    FleetIngest._assemble_ext = timed('_assemble_ext', 'assemble_ext')
 
     def restore():
         for n, v in saved.items():
             setattr(FleetIngest, n, v)
     return restore
+
+
+def _counts(ingest) -> dict:
+    """The ingest's tick census and phase counters, to take a delta."""
+    out = {k: getattr(ingest, a) for k, a in _COUNTERS.items()}
+    out.update(ticks=ingest.ticks, tick_ms=ingest.tick_hist.sum(),
+               routed_ticks=ingest.tick_hist.count())
+    return out
 
 
 async def run(n_clients: int = 32, n_ops: int = 15,
@@ -189,6 +178,7 @@ async def run(n_clients: int = 32, n_ops: int = 15,
                 await c.create('/c%d-%d' % (i, s), b'')
                 lat.append((loop.time() - t0) * 1000.0)
         k1 = wire_scan.launches
+        c0 = _counts(ingest)
         gc.callbacks.append(pauses)
         t0 = loop.time()
         try:
@@ -197,6 +187,9 @@ async def run(n_clients: int = 32, n_ops: int = 15,
             gc.callbacks.remove(pauses)
         dt = loop.time() - t0
         k1 = wire_scan.launches - k1
+        counts = {k: v - c0[k] for k, v in _counts(ingest).items()}
+        conn = clients[0].current_connection()
+        c_ext = conn is not None and conn.codec.ext is not None
     finally:
         restore()
         await asyncio.gather(*[c.close() for c in clients])
@@ -204,13 +197,17 @@ async def run(n_clients: int = 32, n_ops: int = 15,
             await srv.stop()
         if ingest is not None:
             ingest.close()
-    res = _report(lat, dt, k1, pauses.s)
+    res = _report(lat, dt, k1, pauses.s, counts, c_ext)
     # the whole run's device ticks and launches, warm-up rounds included
     res.update(run_ticks=ingest.ticks, run_k1=wire_scan.launches - k1_run)
     return res
 
 
-def _report(lat: list, dt: float, k1: int, gc_s: float) -> dict:
+def _report(lat: list, dt: float, k1: int, gc_s: float, counts: dict,
+            c_ext: bool) -> dict:
+    """Print and return the run's numbers: ``counts`` is the ingest's
+    change over the loop (:func:`_counts`), ``c_ext`` whether its
+    connections assembled through the C codec."""
     lat.sort()
     res = {'ops_per_sec': len(lat) / dt, 'p50_ms': lat[len(lat) // 2],
            'p99_ms': lat[int(len(lat) * 0.99)], 'max_ms': lat[-1],
@@ -218,10 +215,9 @@ def _report(lat: list, dt: float, k1: int, gc_s: float) -> dict:
     print(f'create: {res["ops_per_sec"]:.1f} ops/s  '
           f'p50={res["p50_ms"]:.3f} ms  p99={res["p99_ms"]:.3f} ms  '
           f'max={res["max_ms"]:.3f} ms')
-    ticks = [t for t in TICKS if t['kind'] == 'tick']
     steps = [t for t in TICKS if t['kind'] == 'step_call']
-    dev = [t for t in ticks if 'step' in t['phases']]
-    print(f'{len(ticks)} ticks ({len(dev)} device ticks), '
+    n_dev = counts['ticks']
+    print(f'{counts["routed_ticks"]} ticks ({n_dev} device ticks), '
           f'{len(steps)} step calls, K1 launches {k1}')
     shapes: dict = {}
     for s in steps:
@@ -230,27 +226,34 @@ def _report(lat: list, dt: float, k1: int, gc_s: float) -> dict:
         first, srt = dts[0], sorted(dts)
         print(f'  bucket {sh}: n={len(dts)} first={first:.2f}ms '
               f'p50={srt[len(srt) // 2]:.2f}ms max={srt[-1]:.2f}ms')
-    tick_ms = sum(t['dt'] for t in dev) * 1e3
-    split = {p: sum(t['phases'].get(p, 0.0) for t in dev) * 1e3
-             for p in PHASES + ('assemble', 'assemble_ext', 'gc')}
+    # every routed tick of the loop: device ticks where the buckets
+    # were warmed before it (a bypass or warming tick would add its
+    # scalar drain here, and to ``other``)
+    tick_ms = counts['tick_ms']
+    split = {p: sum(t['phases'].get(p, 0.0) for t in steps) * 1e3
+             for p in ('h2d', 'step', 'readback', 'gc')}
+    for p in ('staging', 'unpack', 'route', 'assemble'):
+        split[p] = counts[p] * 1e3
+    split['assemble_ext'] = split['assemble'] if c_ext else 0.0
     other = tick_ms - sum(split[p] for p in PHASES)
-    n = max(1, len(dev))
+    n = max(1, n_dev)
     print('per-phase split of %d device ticks (ms in all / a tick): %s; '
           'other %.3f / %.4f; tick %.3f / %.4f; route holds assembly '
-          '%.3f (C ext %.3f); collector pauses %.3f in ticks, %.3f in all'
-          % (len(dev), ', '.join('%s %.3f / %.4f' % (p, split[p],
-                                                      split[p] / n)
-                                 for p in PHASES),
+          '%.3f (C ext %.3f); collector pauses %.3f in device halves, '
+          '%.3f in all'
+          % (n_dev, ', '.join('%s %.3f / %.4f' % (p, split[p],
+                                                   split[p] / n)
+                              for p in PHASES),
              other, other / n, tick_ms, tick_ms / n, split['assemble'],
              split['assemble_ext'], split['gc'], gc_s * 1e3))
-    ticks.sort(key=lambda t: -t['dt'])
-    print('worst 10 ticks:')
-    for t in ticks[:10]:
+    steps.sort(key=lambda t: -t['dt'])
+    print('worst 10 device halves:')
+    for t in steps[:10]:
         print(f'  dt={t["dt"]*1e3:8.2f} ms  n_bufs={t["n_bufs"]:4d} '
-              f'bytes={t["nbytes"]:6d}  '
+              f'bytes={t["nbytes"]:6d}  staging={t["staging"]*1e3:.2f} '
               + ' '.join('%s=%.2f' % (p, t['phases'][p] * 1e3)
                          for p in PHASES if p in t['phases']))
-    res.update(ticks=len(ticks), device_ticks=len(dev), k1=k1,
+    res.update(ticks=counts['routed_ticks'], device_ticks=n_dev, k1=k1,
                tick_ms=tick_ms, phases_ms=split, other_ms=other,
                gc_ms=gc_s * 1e3,
                buckets={'%dx%d' % sh: len(d) for sh, d in shapes.items()})

@@ -16,6 +16,7 @@ ride in a label without producing unparseable scrape output.
 from __future__ import annotations
 
 import time
+from bisect import bisect_left
 
 from .aio import ambient_loop
 
@@ -172,6 +173,18 @@ class Histogram:
             row[len(self.buckets)] += 1     # +Inf-only
         row[-1] += value
 
+    def series(self, labels: dict[str, str] | None = None
+               ) -> 'HistogramSeries':
+        """One label set's series, resolved once: its ``observe``
+        builds no label dict or key tuple (per-op hot paths)."""
+        return HistogramSeries(self._row(labels), self.buckets)
+
+    def rows(self, label: str, values) -> 'HistogramRows':
+        """The series of ``label`` = each of ``values``, resolved once,
+        observed together (:meth:`HistogramRows.observe_each`)."""
+        return HistogramRows(tuple(self._row({label: v}) for v in values),
+                             self.buckets)
+
     def count(self, labels: dict[str, str] | None = None) -> int:
         row = self._series.get(_label_key(labels))
         return sum(row[:-1]) if row is not None else 0
@@ -247,6 +260,50 @@ class Histogram:
             lines.append('%s_count%s %d' % (self.name,
                                             _render_labels(key), cum))
         return '\n'.join(lines)
+
+
+class HistogramSeries:
+    """One series of a :class:`Histogram` (:meth:`Histogram.series`):
+    ``observe`` lands in the same row the labelled call would."""
+
+    __slots__ = ('_row', '_bounds', '_sum')
+
+    def __init__(self, row: list, bounds: tuple):
+        self._row = row
+        self._bounds = bounds
+        #: the sum's slot, the row's last, as a non-negative index
+        #: (which the interpreter's list-subscript fast path takes)
+        self._sum = len(row) - 1
+
+    def observe(self, value: float) -> None:
+        row = self._row
+        # the first bound >= value, or the +Inf slot past the bounds
+        row[bisect_left(self._bounds, value)] += 1
+        row[self._sum] += value
+
+
+class HistogramRows:
+    """Series of one :class:`Histogram` (:meth:`Histogram.rows`),
+    observed together: one call for a value of each (a per-op hot
+    path observing several series)."""
+
+    __slots__ = ('_rows', '_bounds', '_sum')
+
+    def __init__(self, rows: tuple, bounds: tuple):
+        self._rows = rows
+        self._bounds = bounds
+        self._sum = len(bounds) + 1       # as HistogramSeries._sum
+
+    def observe_each(self, values) -> None:
+        """Value ``i`` into series ``i``; a None observes nothing."""
+        rows, bounds, at_sum = self._rows, self._bounds, self._sum
+        i = 0
+        for value in values:
+            if value is not None:
+                row = rows[i]
+                row[bisect_left(bounds, value)] += 1
+                row[at_sum] += value
+            i += 1
 
 
 METRIC_TICK = 'zk_tick_ms'

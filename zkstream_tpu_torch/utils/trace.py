@@ -35,6 +35,31 @@ write instead of a log-grepping session.
 (``chaos --trace-out``, the ``trce`` admin word, ``timeline --json``);
 :meth:`Span.to_dict` emits its keys in one fixed order so dumps are
 byte-stable for a given span.
+
+**Op stages.**  A client op's span carries five ``time.perf_counter``
+stamps, so one op's latency splits where the time went: ``_t0``, the
+call (``Client._start_op``); ``t_sent``, the send-plane flush that
+handed its frame to the transport (io/sendplane.py); ``t_rx``, when
+the connection's inbound buffer that held the reply last went from
+empty to non-empty (io/connection.py, or the ``FleetIngest`` slot in
+io/ingest.py); ``t_routed``, its reply routed back by xid
+(:meth:`Span.finish` given ``t_rx``); ``t_resumed``, the awaiting
+coroutine resumed (``Client._await_op``).  :meth:`Span.stage_ms` turns them into the
+four stages ``send``, ``remote``, ``ingest`` and ``resume``, which
+add up to the op's latency; the client observes them into
+``zookeeper_op_stage_ms{stage=...}``.  The stamps are plain floats on
+the span: no object the collector tracks is added an op.
+
+**Profiler ranges.**  :func:`set_profiler_ranges` turns on the port's
+own ``torch.profiler`` ranges (``zk.read``, ``zk.flush``, ``zk.route``,
+``zk.call``, ``zk.reply``), so a device trace labels the host time
+between kernels by the port code that ran.  Off by default: each
+instrumented point then costs one global read and no torch call.  On,
+a range is torch's fast record function (``_RecordFunctionFast``,
+~1.5 us a range under a running profiler against ~27 us for
+``record_function``'s dispatcher op, which the profiler records as an
+op of its own); it shows in the trace as a host event of that name on
+the kernels' clock, not as a user annotation.
 """
 
 from __future__ import annotations
@@ -48,7 +73,12 @@ import time
 #: span fields or their meaning change; consumers key on it.
 #: Schema 2: member rings (``member``/``batch``/``nbytes``/``detail``
 #: fields, server-side ops), stable-ordered ``Span.to_dict``.
-TRACE_SCHEMA = 2
+#: Schema 3: a client op's stage durations (``send_ms``,
+#: ``remote_ms``, ``ingest_ms``, ``resume_ms``), each where reached.
+TRACE_SCHEMA = 3
+
+#: The stages of one client op, in order (:meth:`Span.stage_ms`).
+OP_STAGES = ('send', 'remote', 'ingest', 'resume')
 
 #: ``to_dict`` emission order (after the four always-present keys):
 #: fixed so a span serializes byte-identically regardless of which
@@ -73,7 +103,8 @@ class Span:
     __slots__ = ('span_id', 'kind', 'op', 'path', 'xid', 'zxid',
                  'backend', 'session_id', 'status', 'error',
                  't_wall', '_t0', 'duration_ms',
-                 'member', 'batch', 'nbytes', 'detail', '_on_slow')
+                 'member', 'batch', 'nbytes', 'detail', '_on_slow',
+                 't_sent', 't_rx', 't_routed', 't_resumed')
 
     def __init__(self, span_id: int, op: str, path: str | None = None,
                  kind: str = 'op'):
@@ -97,19 +128,32 @@ class Span:
         self.status: str = 'open'
         self.error: str | None = None
         self.t_wall = time.time()
-        self._t0 = time.monotonic()
+        #: The call stamp (``time.perf_counter``), and the op's later
+        #: stage stamps, None until reached (module docstring).
+        self._t0 = time.perf_counter()
+        self.t_sent: float | None = None
+        self.t_rx: float | None = None
+        self.t_routed: float | None = None
+        self.t_resumed: float | None = None
         self.duration_ms: float | None = None
         #: Armed by a ring with a slow-op threshold: called once with
         #: the span when finish() measures a duration at/over it.
         self._on_slow = None
 
     def finish(self, zxid: int | None = None, status: str = 'ok',
-               error: str | None = None) -> None:
+               error: str | None = None,
+               t_rx: float | None = None) -> None:
         """Close the span exactly once; a double-settle (teardown races
-        in the connection) keeps the first outcome."""
+        in the connection) keeps the first outcome.  ``t_rx``, given
+        where a reply routes back by xid, is the reply's read time: it
+        stamps ``t_rx`` and ``t_routed`` (now) of a span still open."""
         if self.status != 'open':
             return
-        self.duration_ms = (time.monotonic() - self._t0) * 1000.0
+        now = time.perf_counter()
+        if t_rx is not None:
+            self.t_rx = t_rx
+            self.t_routed = now
+        self.duration_ms = (now - self._t0) * 1000.0
         if zxid is not None:
             self.zxid = zxid
         self.status = status
@@ -118,6 +162,29 @@ class Span:
         if hook is not None:
             self._on_slow = None
             hook(self)
+
+    def stage_ms(self) -> tuple:
+        """The op's ``(send, remote, ingest, resume)`` durations in ms,
+        each None where the op never reached the stamp that ends it
+        (an op that failed, hit its deadline or was abandoned skips
+        the rest).  ``remote`` starts at ``t_sent`` and ``ingest`` at
+        the later of ``t_rx`` and ``t_sent`` (a reply read into a
+        buffer that already held older bytes takes the buffer's
+        time), so the four are >= 0 and, for an op that resumed on
+        its routed reply, add up to ``t_resumed - _t0``."""
+        sent, routed, resumed = self.t_sent, self.t_routed, self.t_resumed
+        send = remote = ingest = resume = None
+        if sent is not None:
+            send = (sent - self._t0) * 1000.0
+            if routed is not None:
+                rx = self.t_rx
+                if rx < sent:
+                    rx = sent
+                remote = (rx - sent) * 1000.0
+                ingest = (routed - rx) * 1000.0
+        if routed is not None and resumed is not None:
+            resume = (resumed - routed) * 1000.0
+        return send, remote, ingest, resume
 
     def to_dict(self) -> dict:
         """JSON-ready dict, keys in one fixed order (insertion order
@@ -131,6 +198,10 @@ class Span:
                 d[field] = val
         if self.duration_ms is not None:
             d['duration_ms'] = round(self.duration_ms, 3)
+        if self.t_sent is not None or self.t_routed is not None:
+            for stage, ms in zip(OP_STAGES, self.stage_ms()):
+                if ms is not None:
+                    d[stage + '_ms'] = round(ms, 3)
         return d
 
     def __repr__(self) -> str:  # pragma: no cover - debugging aid
@@ -216,6 +287,7 @@ class TraceRing:
         span.error = None
         span.t_wall = time.time()
         span._t0 = 0.0
+        span.t_sent = span.t_rx = span.t_routed = span.t_resumed = None
         span.duration_ms = 0.0
         span._on_slow = None        # already settled; checked below
         for name, val in fields.items():
@@ -357,3 +429,72 @@ def format_timeline(entries: list[dict],
                          e.get('status', ''), e.get('path') or '-',
                          ' '.join(extra))).rstrip())
     return '\n'.join(lines)
+
+
+# ---------------------------------------------------------------------
+# The port's own profiler ranges (module docstring, "Profiler ranges").
+# ---------------------------------------------------------------------
+
+#: True while a ``torch.profiler`` session has asked for the port's
+#: ranges (:func:`set_profiler_ranges`); every instrumented point reads
+#: it, and makes no torch call while it is False.
+profiler_ranges = False
+#: torch's fast record function, bound when the ranges are turned on.
+_fast = None
+#: The op's open synchronous range, ``(name, handle)``: ``zk.call``
+#: over an op method's head up to the await on its reply, ``zk.reply``
+#: over its tail after it.  One slot serves every op: heads and tails
+#: are synchronous, so no two of them interleave on the loop's thread.
+_op_open = None
+
+
+def set_profiler_ranges(on: bool) -> None:
+    """Turn the port's profiler ranges on (a profiler session asking
+    for them) or off (its end, which also closes an op range left
+    open)."""
+    global profiler_ranges, _fast
+    if on:
+        import torch
+
+        _fast = torch._C._profiler._RecordFunctionFast
+        profiler_ranges = True
+    else:
+        op_switch(None)
+        profiler_ranges = False
+
+
+def range_enter(name: str):
+    """Open the range ``name``; returns the handle :func:`range_exit`
+    closes."""
+    handle = _fast(name)
+    handle.__enter__()
+    return handle
+
+
+def range_exit(handle) -> None:
+    handle.__exit__(None, None, None)
+
+
+def op_open() -> bool:
+    """Open ``zk.call`` over an op's synchronous head, unless a head is
+    already open (an op method called inside another's head); True
+    when this call opened it, so the caller closes it with
+    ``op_switch(None)`` when the op returns.  A tail left open (an op
+    that resumed while the ranges were off) is closed first."""
+    cur = _op_open
+    if cur is not None and cur[0] == 'zk.call':
+        return False
+    op_switch('zk.call')
+    return True
+
+
+def op_switch(name: str | None) -> None:
+    """Close the op's open range and open ``name`` in its place (None:
+    leave none open)."""
+    global _op_open
+    cur = _op_open
+    _op_open = None
+    if cur is not None:
+        range_exit(cur[1])
+    if name is not None:
+        _op_open = (name, range_enter(name))

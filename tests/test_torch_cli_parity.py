@@ -140,13 +140,21 @@ async def test_ping_and_metrics_print_the_same(tree):
     assert port == ref and port[1] == 'ping ok: # ms\n'
     port, ref = await _both(_srv(tree) + ['metrics'], mask=True)
     assert port[0] == ref[0] == 0
-    # the exposition lists the same series, and the port's op stages
-    # beside them; their values are timings
+    # the exposition lists the same series, and the port's own beside
+    # them: the op stages (their values are timings) and the gauges of
+    # the scope registrations and the span ring's forms
     stage = 'zookeeper_op_stage_ms'
+    own = (stage, 'zkstream_fsm_scope_registrations',
+           'zkstream_trace_ring_spans')
     lines = port[1].splitlines()
-    assert sorted(ln for ln in lines if stage not in ln) == \
+    assert sorted(ln for ln in lines
+                  if not any(name in ln for name in own)) == \
         sorted(ref[1].splitlines())
     assert any(ln.startswith(stage + '_count{stage="send"}')
+               for ln in lines)
+    assert any(ln.startswith('zkstream_fsm_scope_registrations ')
+               for ln in lines)
+    assert any(ln.startswith('zkstream_trace_ring_spans{form="row"} ')
                for ln in lines)
 
 

@@ -51,7 +51,7 @@ from .utils.aio import ambient_loop
 from .utils.fsm import FSM, bind_transition_metrics
 from .utils.logging import Logger
 from .utils.metrics import Collector
-from .utils.trace import OP_STAGES, TraceRing
+from .utils.trace import OP_STAGES, TraceRing, bind_ring_metrics
 
 METRIC_ZK_EVENT_COUNTER = 'zookeeper_events'
 METRIC_ZK_DEGRADED_GAUGE = 'zookeeper_degraded'
@@ -197,6 +197,7 @@ class Client(FSM):
         #: dump it on failure.
         self.trace = trace if trace is not None else TraceRing(
             trace_capacity)
+        bind_ring_metrics(self.trace, self.collector)
         #: Optional per-op completion hook: called with the settled
         #: Span after EVERY completion path (reply, typed error,
         #: deadline), in completion order.  The chaos campaigns'
@@ -622,6 +623,7 @@ class Client(FSM):
             series.observe((t - t0) * 1000.0)
             if span is not None:
                 span.t_resumed = t
+                span.restamp()
                 self._op_stages.observe_each(span.stage_ms())
                 if self.on_op is not None:
                     self.on_op(span)

@@ -357,6 +357,8 @@ class SendPlane:
         spans = self._spans
         for span in spans:
             span.t_sent = t
+            if span.status != 'open':
+                span.restamp()      # settled before its frame went out
         spans.clear()
 
     def reset(self) -> None:

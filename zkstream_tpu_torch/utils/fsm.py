@@ -29,6 +29,7 @@ from .aio import ambient_loop
 
 METRIC_FSM_TRANSITIONS = 'zkstream_fsm_transitions'
 METRIC_FSM_STATE = 'zkstream_fsm_state'
+METRIC_FSM_REGISTRATIONS = 'zkstream_fsm_scope_registrations'
 
 
 def _fsm_state_counts(registry) -> dict:
@@ -45,6 +46,14 @@ def _fsm_state_counts(registry) -> dict:
             for (label, state), n in counts.items()}
 
 
+def _fsm_registrations(registry) -> float:
+    """Live ``StateScope`` registrations over a weak registry of
+    instrumented machines: the disposers their current scopes hold."""
+    return float(sum(len(scope._disposers)
+                     for machine in list(registry)
+                     for _st, scope in getattr(machine, '_scopes', ())))
+
+
 def bind_transition_metrics(machine, collector,
                             label: str | None = None) -> None:
     """Instrument any object with a ``get_state()`` and state
@@ -55,7 +64,10 @@ def bind_transition_metrics(machine, collector,
     - ``zkstream_fsm_transitions{fsm,from,to}`` — a counter bumped on
       every transition;
     - ``zkstream_fsm_state{fsm,state}`` — a pull gauge counting live
-      machines per (label, state) at scrape time.
+      machines per (label, state) at scrape time;
+    - ``zkstream_fsm_scope_registrations`` — a pull gauge summing the
+      live ``StateScope`` registrations of those machines (the
+      process's, where one collector serves every client).
 
     The registry holds weak references, so instrumented machines are
     censused only while alive; binding is idempotent per collector
@@ -72,6 +84,11 @@ def bind_transition_metrics(machine, collector,
             METRIC_FSM_STATE,
             lambda reg=registry: _fsm_state_counts(reg),
             'Live state machines per (fsm, state)')
+        collector.gauge(
+            METRIC_FSM_REGISTRATIONS,
+            lambda reg=registry: _fsm_registrations(reg),
+            'Live state-scope registrations (listeners, timers, '
+            'deferred callbacks) of the instrumented machines')
     registry.add(machine)
 
 
@@ -84,50 +101,84 @@ def note_transition(machine, old: str | None, new: str) -> None:
                        'from': old or '', 'to': new})
 
 
+class _Scoped:
+    """A callback bound to a scope: calls ``cb`` only while the scope is
+    current.  ``S.on`` registers one as the emitter's listener and as
+    its own disposer (``emitter`` and ``event`` say where the disposal
+    takes it off, by identity); ``S.timeout`` and ``S.immediate``
+    schedule one.  A registration is thus one object the collector
+    tracks."""
+
+    __slots__ = ('scope', 'cb', 'emitter', 'event')
+
+    def __init__(self, scope: 'StateScope', cb: Callable,
+                 emitter: EventEmitter | None = None,
+                 event: str | None = None):
+        self.scope = scope
+        self.cb = cb
+        self.emitter = emitter
+        self.event = event
+
+    def __call__(self, *args) -> None:
+        if self.scope._valid:
+            self.cb(*args)
+
+
+class _Interval:
+    """One ``S.interval`` registration: the armed timer and its re-arm."""
+
+    __slots__ = ('scope', 'cb', 'delay', 'loop', 'handle')
+
+    def __init__(self, scope: 'StateScope', cb: Callable[[], None],
+                 delay: float, loop):
+        self.scope = scope
+        self.cb = cb
+        self.delay = delay
+        self.loop = loop
+        self.handle = loop.call_later(delay, self.fire)
+
+    def fire(self) -> None:
+        if not self.scope._valid:
+            return
+        self.cb()
+        if self.scope._valid:
+            self.handle = self.loop.call_later(self.delay, self.fire)
+
+    def cancel(self) -> None:
+        self.handle.cancel()
+
+
 class StateScope:
     """Handle passed to ``state_*`` methods; everything registered through
-    it is disposed when the machine leaves the state."""
+    it is disposed when the machine leaves the state.
+
+    The disposers, in registration order: an ``S.on`` listener (a
+    :class:`_Scoped`, taken off its emitter), a timer handle or an
+    :class:`_Interval` (cancelled), an ``S.defer`` callback (called)."""
 
     def __init__(self, fsm: 'FSM', state: str):
         self._fsm = fsm
         self._state = state
-        self._disposers: list[Callable[[], None]] = []
+        self._disposers: list = []
         self._valid = True
 
     def on(self, emitter: EventEmitter, event: str, cb: Callable) -> None:
-        def guarded(*args):
-            if self._valid:
-                cb(*args)
-        emitter.on(event, guarded)
-        self._disposers.append(
-            lambda: emitter.remove_listener(event, guarded))
+        guard = _Scoped(self, cb, emitter, event)
+        emitter.on(event, guard)
+        self._disposers.append(guard)
 
     def timeout(self, ms: float,
                 cb: Callable[[], None]) -> asyncio.TimerHandle:
-        loop = ambient_loop()
-        handle = loop.call_later(ms / 1000.0,
-                                 lambda: self._valid and cb())
-        self._disposers.append(handle.cancel)
+        handle = ambient_loop().call_later(ms / 1000.0, _Scoped(self, cb))
+        self._disposers.append(handle)
         return handle
 
     def interval(self, ms: float, cb: Callable[[], None]) -> None:
-        loop = ambient_loop()
-        state = {}
-
-        def fire():
-            if not self._valid:
-                return
-            cb()
-            if self._valid:
-                state['h'] = loop.call_later(ms / 1000.0, fire)
-
-        state['h'] = loop.call_later(ms / 1000.0, fire)
-        self._disposers.append(lambda: state['h'].cancel())
+        self._disposers.append(
+            _Interval(self, cb, ms / 1000.0, ambient_loop()))
 
     def immediate(self, cb: Callable[[], None]) -> None:
-        loop = ambient_loop()
-        handle = loop.call_soon(lambda: self._valid and cb())
-        self._disposers.append(handle.cancel)
+        self._disposers.append(ambient_loop().call_soon(_Scoped(self, cb)))
 
     def defer(self, cb: Callable[[], None]) -> None:
         """Run ``cb`` when the machine leaves this state (scope-exit
@@ -141,7 +192,12 @@ class StateScope:
     def _dispose(self) -> None:
         self._valid = False
         for d in self._disposers:
-            d()
+            if type(d) is _Scoped:
+                d.emitter.remove_listener(d.event, d)
+            elif callable(d):
+                d()                 # S.defer
+            else:
+                d.cancel()          # a timer handle, an _Interval
         self._disposers.clear()
 
 

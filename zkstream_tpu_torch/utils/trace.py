@@ -26,10 +26,13 @@ the client ring on failure (cli.py and io/faults.py).
 Spans live in a bounded in-memory ring buffer (:class:`TraceRing`) —
 fixed memory, no I/O, safe to leave on in production; overwrites are
 counted in :attr:`TraceRing.dropped` (the ``zk_trace_ring_dropped``
-mntr row).  The chaos campaign (io/faults.py, the ``chaos`` CLI)
-dumps the rings alongside the failing seed, so a schedule failure
-arrives with the exact cross-member path of the lost or duplicated
-write instead of a log-grepping session.
+mntr row).  A settled span is held there as a row of atomic values,
+which the interpreter's collector stops walking after its first young
+pass: a process of 1,024 clients holds up to 262,144 settled spans.
+The chaos campaign (io/faults.py, the ``chaos`` CLI) dumps the rings
+alongside the failing seed, so a schedule failure arrives with the
+exact cross-member path of the lost or duplicated write instead of a
+log-grepping session.
 
 ``TRACE_SCHEMA`` versions every JSON emission of spans
 (``chaos --trace-out``, the ``trce`` admin word, ``timeline --json``);
@@ -64,10 +67,9 @@ the kernels' clock, not as a user annotation.
 
 from __future__ import annotations
 
-import collections
-import itertools
 import json
 import time
+import weakref
 
 #: Version stamp for every JSON emission of span dumps.  Bump when
 #: span fields or their meaning change; consumers key on it.
@@ -96,15 +98,19 @@ def server_trace_default() -> bool:
     return os.environ.get('ZKSTREAM_NO_SERVER_TRACE') != '1'
 
 
+#: A settled span's fields, in the order of its row in a
+#: :class:`TraceRing`.
+_ROW = ('span_id', 'kind', 'op', 'path', 'xid', 'zxid', 'backend',
+        'session_id', 'status', 'error', 't_wall', '_t0', 'duration_ms',
+        'member', 'batch', 'nbytes', 'detail', 't_sent', 't_rx',
+        't_routed', 't_resumed')
+
+
 class Span:
     """One traced operation: request-side fields stamped at creation,
     reply-side fields stamped on completion."""
 
-    __slots__ = ('span_id', 'kind', 'op', 'path', 'xid', 'zxid',
-                 'backend', 'session_id', 'status', 'error',
-                 't_wall', '_t0', 'duration_ms',
-                 'member', 'batch', 'nbytes', 'detail', '_on_slow',
-                 't_sent', 't_rx', 't_routed', 't_resumed')
+    __slots__ = _ROW + ('_ring',)
 
     def __init__(self, span_id: int, op: str, path: str | None = None,
                  kind: str = 'op'):
@@ -136,9 +142,10 @@ class Span:
         self.t_routed: float | None = None
         self.t_resumed: float | None = None
         self.duration_ms: float | None = None
-        #: Armed by a ring with a slow-op threshold: called once with
-        #: the span when finish() measures a duration at/over it.
-        self._on_slow = None
+        #: The ring that started this span (:meth:`TraceRing.start`):
+        #: told when it settles, and of a stamp written after that
+        #: (:meth:`restamp`).  None for a span rebuilt from a row.
+        self._ring = None
 
     def finish(self, zxid: int | None = None, status: str = 'ok',
                error: str | None = None,
@@ -158,10 +165,35 @@ class Span:
             self.zxid = zxid
         self.status = status
         self.error = error
-        hook = self._on_slow
-        if hook is not None:
-            self._on_slow = None
-            hook(self)
+        ring = self._ring
+        if ring is not None:
+            ring._settled(self)
+
+    def restamp(self) -> None:
+        """Carry fields written after the settle (``Client._await_op``'s
+        ``t_resumed``, the send plane's ``t_sent`` of a frame flushed
+        after its op's deadline) into the ring's row of this span;
+        nothing while the span is open."""
+        ring = self._ring
+        if ring is not None and self.status != 'open':
+            ring._store(self)
+
+    def _row(self) -> tuple:
+        """The span's fields in ``_ROW`` order."""
+        return (self.span_id, self.kind, self.op, self.path, self.xid,
+                self.zxid, self.backend, self.session_id, self.status,
+                self.error, self.t_wall, self._t0, self.duration_ms,
+                self.member, self.batch, self.nbytes, self.detail,
+                self.t_sent, self.t_rx, self.t_routed, self.t_resumed)
+
+    @classmethod
+    def _of(cls, row: tuple) -> 'Span':
+        """The span a row holds, field for field."""
+        span = cls.__new__(cls)
+        for name, val in zip(_ROW, row):
+            setattr(span, name, val)
+        span._ring = None
+        return span
 
     def stage_ms(self) -> tuple:
         """The op's ``(send, remote, ingest, resume)`` durations in ms,
@@ -214,7 +246,13 @@ class TraceRing:
     volume — and :attr:`dropped` counts the evictions so a scrape can
     tell a quiet ring from one that wrapped.  ``member`` stamps every
     span recorded here with the owning ensemble member's id (None for
-    the client ring)."""
+    the client ring).
+
+    An open span is held as its :class:`Span`, which the op path
+    stamps; a settled one as its row, a tuple of its fields (``_ROW``)
+    that holds only ints, strs, floats and None, so the collector
+    untracks it at its first young pass and no later pass walks it.
+    :meth:`spans` rebuilds the ``Span`` of each row, field for field."""
 
     def __init__(self, capacity: int = 256,
                  member: str | None = None):
@@ -230,31 +268,63 @@ class TraceRing:
         #: (utils/blackbox.py persists the span's causal chain).
         self.slow_ms: float | None = None
         self.on_slow = None
-        self._ring: collections.deque[Span] = collections.deque(
-            maxlen=capacity)
-        self._ids = itertools.count(1)
+        #: Span ``n`` lives in slot ``(n - 1) % capacity``: a Span
+        #: while open, a row once settled, None where nothing is.
+        self._slots: list = [None] * capacity
+        #: spans recorded since construction (the newest span id)
+        self._n = 0
+        #: ``_n`` at the last :meth:`clear`
+        self._cleared = 0
+        #: slots holding a Span rather than a row
+        self._objects = 0
 
     def __len__(self) -> int:
-        return len(self._ring)
+        return min(self._n - self._cleared, self.capacity)
 
-    def _slow_settled(self, span: Span) -> None:
-        """Span.finish() callback: apply the threshold (the hook fires
-        on every settle; sub-threshold spans stop here)."""
+    def held(self) -> tuple:
+        """``(rows, objects)``: the spans held as settled rows and as
+        ``Span`` objects (the open ones)."""
+        return len(self) - self._objects, self._objects
+
+    def _put(self, n: int, entry) -> None:
+        """Hold span ``n``'s ``entry``, evicting the oldest if full."""
+        i = (n - 1) % self.capacity
+        old = self._slots[i]
+        if old is not None:
+            self.dropped += 1
+            if type(old) is not tuple:
+                self._objects -= 1
+        self._slots[i] = entry
+
+    def _settled(self, span: Span) -> None:
+        """Span.finish() callback: hand a span at or over the threshold
+        to :attr:`on_slow`, then keep its row."""
         if (self.slow_ms is not None and self.on_slow is not None
                 and span.duration_ms is not None
                 and span.duration_ms >= self.slow_ms):
             self.on_slow(span)
+        self._store(span)
+
+    def _store(self, span: Span) -> None:
+        """Hold the settled ``span`` as its row, in its slot, unless the
+        ring let it go since (evicted or cleared)."""
+        i = (span.span_id - 1) % self.capacity
+        cur = self._slots[i]
+        if cur is span:
+            self._objects -= 1
+        elif type(cur) is not tuple or cur[0] != span.span_id:
+            return
+        self._slots[i] = span._row()
 
     def start(self, op: str, path: str | None = None,
               kind: str = 'op') -> Span:
-        span = Span(next(self._ids), op, path, kind=kind)
+        n = self._n = self._n + 1
+        span = Span(n, op, path, kind=kind)
         if self.member is not None:
             span.member = self.member
-        if self.slow_ms is not None:
-            span._on_slow = self._slow_settled
-        if len(self._ring) >= self.capacity:
-            self.dropped += 1       # the append below evicts one
-        self._ring.append(span)
+        span._ring = self
+        self._put(n, span)
+        self._objects += 1
         return span
 
     def note(self, op: str, path: str | None = None,
@@ -270,8 +340,9 @@ class TraceRing:
         server hot path (a COMMIT + WAL_APPEND note per write txn),
         and skipping the open-span bookkeeping roughly halves the
         cost."""
+        n = self._n = self._n + 1
         span = Span.__new__(Span)
-        span.span_id = next(self._ids)
+        span.span_id = n
         span.kind = kind
         span.op = op
         span.path = path
@@ -289,35 +360,75 @@ class TraceRing:
         span._t0 = 0.0
         span.t_sent = span.t_rx = span.t_routed = span.t_resumed = None
         span.duration_ms = 0.0
-        span._on_slow = None        # already settled; checked below
+        span._ring = None           # born settled: the ring holds a row
         for name, val in fields.items():
             setattr(span, name, val)
-        if len(self._ring) >= self.capacity:
-            self.dropped += 1       # the append below evicts one
-        self._ring.append(span)
-        if (self.slow_ms is not None
+        self._put(n, span._row())
+        if (self.slow_ms is not None and self.on_slow is not None
                 and span.duration_ms >= self.slow_ms):
-            self._slow_settled(span)
+            self.on_slow(span)
         return span
 
+    def _entries(self) -> list:
+        """The held entries, oldest first."""
+        i = self._n % self.capacity
+        slots = self._slots
+        return [e for e in slots[i:] + slots[:i] if e is not None]
+
     def spans(self) -> list[Span]:
-        return list(self._ring)
+        return [e if type(e) is not tuple else Span._of(e)
+                for e in self._entries()]
 
     def open_spans(self) -> list[Span]:
         """Spans still unsettled — after teardown there must be none
         (the chaos campaigns assert it; an op evicted from the pending
         table without a settle is a span-leak bug)."""
-        return [s for s in self._ring if s.status == 'open']
+        return [e for e in self._entries()
+                if type(e) is not tuple and e.status == 'open']
 
     def dump(self) -> list[dict]:
         """The ring's contents, oldest first, as JSON-ready dicts."""
-        return [s.to_dict() for s in self._ring]
+        return [s.to_dict() for s in self.spans()]
 
     def dump_json(self, indent: int | None = None) -> str:
         return json.dumps(self.dump(), indent=indent)
 
     def clear(self) -> None:
-        self._ring.clear()
+        self._slots = [None] * self.capacity
+        self._cleared = self._n
+        self._objects = 0
+
+
+#: The client rings' census (:func:`bind_ring_metrics`).
+METRIC_RING_SPANS = 'zkstream_trace_ring_spans'
+
+
+def _ring_census(registry) -> dict:
+    rows = objects = 0
+    for ring in list(registry):
+        r, o = ring.held()
+        rows += r
+        objects += o
+    return {(('form', 'row'),): float(rows),
+            (('form', 'open'),): float(objects)}
+
+
+def bind_ring_metrics(ring: TraceRing, collector) -> None:
+    """Count ``ring`` in ``collector``'s pull gauge
+    ``zkstream_trace_ring_spans{form}``: the spans its bound rings
+    hold as settled rows (``row``) and as open ``Span`` objects
+    (``open``), summed at scrape time (the process's, where one
+    collector serves every client).  The registry holds weak
+    references; binding is idempotent per collector."""
+    registry = getattr(collector, '_ring_registry', None)
+    if registry is None:
+        registry = collector._ring_registry = weakref.WeakSet()
+        collector.multi_gauge(
+            METRIC_RING_SPANS,
+            lambda reg=registry: _ring_census(reg),
+            'Spans the client trace rings hold, by form (row: settled, '
+            'open: a Span object)')
+    registry.add(ring)
 
 
 def format_spans(spans: list[dict], limit: int | None = None) -> str:

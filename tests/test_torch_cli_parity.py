@@ -142,7 +142,7 @@ async def test_ping_and_metrics_print_the_same(tree):
     assert port[0] == ref[0] == 0
     # the exposition lists the same series, and the port's own beside
     # them: the op stages (their values are timings) and the gauges of
-    # the scope registrations and the span ring's forms
+    # the scope registrations' and the span ring's forms
     stage = 'zookeeper_op_stage_ms'
     own = (stage, 'zkstream_fsm_scope_registrations',
            'zkstream_trace_ring_spans')
@@ -152,8 +152,12 @@ async def test_ping_and_metrics_print_the_same(tree):
         sorted(ref[1].splitlines())
     assert any(ln.startswith(stage + '_count{stage="send"}')
                for ln in lines)
-    assert any(ln.startswith('zkstream_fsm_scope_registrations ')
-               for ln in lines)
+    assert any(ln.startswith(
+        'zkstream_fsm_scope_registrations{form="method"} ')
+        for ln in lines)
+    assert any(ln.startswith(
+        'zkstream_fsm_scope_registrations{form="callable"} ')
+        for ln in lines)
     assert any(ln.startswith('zkstream_trace_ring_spans{form="row"} ')
                for ln in lines)
 

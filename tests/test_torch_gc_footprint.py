@@ -183,8 +183,8 @@ async def test_connected_session_footprint():
         rows = collector.get_collector(T.METRIC_RING_SPANS)._fn()
         assert sum(rows.values()) == 256 * len(clients)
         assert rows[(('form', 'open'),)] <= len(clients)
-        regs = collector.get_collector(
-            'zkstream_fsm_scope_registrations')._fn()
+        regs = sum(collector.get_collector(
+            'zkstream_fsm_scope_registrations')._fn().values())
         assert 10 * len(clients) <= regs <= 40 * len(clients), regs
     finally:
         await asyncio.gather(*[c.close() for c in clients])

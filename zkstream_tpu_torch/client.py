@@ -78,6 +78,31 @@ DEFAULT_OP_TIMEOUT = 30000
 _USE_DEFAULT = object()
 
 
+class _SessionEvents:
+    """A session's ``stateChanged`` listener on its client: the
+    client's ``session`` and ``connect`` events at its first attach,
+    ``connect``, ``disconnect`` and ``expire`` after."""
+
+    __slots__ = ('client', 'attached')
+
+    def __init__(self, client: 'Client'):
+        self.client = client
+        self.attached = False
+
+    def __call__(self, st: str) -> None:
+        client = self.client
+        if st == 'attached':
+            if not self.attached:
+                self.attached = True
+                client._emit_after_connected('session')
+            client._emit_after_connected('connect')
+        elif self.attached:
+            if st == 'detached':
+                client.emit('disconnect')
+            elif st == 'expired':
+                client.emit('expire')
+
+
 class Client(FSM):
     def __init__(self, address: str | None = None, port: int = 2181,
                  servers: list[tuple[str, int] | dict] | None = None,
@@ -235,8 +260,7 @@ class Client(FSM):
         #: change while the primary session drains in place.
         self.resolver = (resolver if resolver is not None
                          else Resolver(backends))
-        self.resolver.on('changed',
-                         lambda bs: self.pool.set_backends(bs))
+        self.resolver.on('changed', self._on_backends_changed)
         #: Read-plane subset cap: dial at most K read sessions from
         #: the live config (None = one per backend; process default
         #: via ``ZKSTREAM_READ_SUBSET``).
@@ -273,13 +297,11 @@ class Client(FSM):
         # edges on the client, count them, and expose the current state
         # as a pull gauge (1 = all backends failing, parked in monitor
         # mode; 0 = healthy).
-        self.pool.on('degraded', lambda: self._emit_tracked('degraded'))
-        self.pool.on('recovered',
-                     lambda: self._emit_tracked('recovered'))
+        self.pool.on('degraded', self._on_degraded)
+        self.pool.on('recovered', self._on_recovered)
         try:
             self.collector.gauge(
-                METRIC_ZK_DEGRADED_GAUGE,
-                lambda: 1.0 if self.pool.degraded else 0.0,
+                METRIC_ZK_DEGRADED_GAUGE, self._degraded_gauge,
                 'Client degraded mode (1 = all backends failing)')
         except ValueError:
             # Shared collector across clients: the first registrant's
@@ -296,11 +318,26 @@ class Client(FSM):
         self._started = False
         super().__init__('normal')
 
+    # The listeners the client registers for itself are its methods:
+    # a bound method is one object, where a closure takes three.
+
+    def _on_backends_changed(self, backends) -> None:
+        self.pool.set_backends(backends)
+
+    def _on_degraded(self) -> None:
+        self._emit_tracked('degraded')
+
+    def _on_recovered(self) -> None:
+        self._emit_tracked('recovered')
+
+    def _degraded_gauge(self) -> float:
+        return 1.0 if self.pool.degraded else 0.0
+
     # -- lifecycle (reference: lib/client.js:127-215) --
 
     def state_normal(self, S) -> None:
         self._new_session()
-        S.on(self, 'closeAsserted', lambda: S.goto_state('closing'))
+        S.goto_on(self, 'closeAsserted', 'closing')
 
     def state_closing(self, S) -> None:
         """Close the session first — its closing state drains the
@@ -309,21 +346,21 @@ class Client(FSM):
         pool before it can redial (reference: lib/client.js:135-177
         shuts session/set/resolver down concurrently and relies on the
         session winning the race; sequencing makes it deterministic)."""
-
-        def finish():
-            self.pool.stop()
-            S.goto_state('closed')
-
         if self.session.is_in_state('closed') or \
            self.session.is_in_state('expired'):
-            finish()
+            self._closing_done()
             return
-
-        def on_session_state(st):
-            if st in ('closed', 'expired'):
-                finish()
-        S.on(self.session, 'stateChanged', on_session_state)
+        S.on(self.session, 'stateChanged', self._on_closing_session)
         self.session.close()
+
+    def _closing_done(self) -> None:
+        S = self._scope
+        self.pool.stop()
+        S.goto_state('closed')
+
+    def _on_closing_session(self, st) -> None:
+        if st in ('closed', 'expired'):
+            self._closing_done()
 
     def state_closed(self, S) -> None:
         self.emit('close')
@@ -393,32 +430,17 @@ class Client(FSM):
             s.gate_floor = carried
         s.fatal_handler = self.on_fatal
         self.session = s
+        s.on('fatalError', self._on_session_fatal)
+        s.on('stateChanged', _SessionEvents(self))
 
-        def on_fatal(exc):
-            # Crash-on-bug escalation from the session's self-checks
-            # (missed wakeup, unmatched notification): surface as the
-            # terminal 'failed' event; the session teardown follows as
-            # 'expire' (reference crashes the process outright,
-            # lib/zk-session.js:916-919).
-            self._event_track('failed')
-            self.emit('failed', exc)
-        s.on('fatalError', on_fatal)
-
-        def initial_handler(st):
-            if st == 'attached':
-                s.remove_listener('stateChanged', initial_handler)
-                s.on('stateChanged', final_handler)
-                self._emit_after_connected('session')
-                self._emit_after_connected('connect')
-
-        def final_handler(st):
-            if st == 'attached':
-                self._emit_after_connected('connect')
-            elif st == 'detached':
-                self.emit('disconnect')
-            elif st == 'expired':
-                self.emit('expire')
-        s.on('stateChanged', initial_handler)
+    def _on_session_fatal(self, exc) -> None:
+        # Crash-on-bug escalation from the session's self-checks
+        # (missed wakeup, unmatched notification): surface as the
+        # terminal 'failed' event; the session teardown follows as
+        # 'expire' (reference crashes the process outright,
+        # lib/zk-session.js:916-919).
+        self._event_track('failed')
+        self.emit('failed', exc)
 
     def get_session(self) -> ZKSession | None:
         """The live session; a session that expired or closed is lazily

@@ -83,13 +83,19 @@ class Backoff:
     def __init__(self, policy: BackoffPolicy, seed: int | None = None):
         self.policy = policy
         self.attempt = 0
-        self._rng = random.Random(seed)
+        #: The jitter's generator, made at the first draw: most
+        #: schedules never draw, and it would be one more object for
+        #: the collector to walk for each of them.
+        self._seed = seed
+        self._rng: random.Random | None = None
 
     def next_delay(self) -> float:
         ceil = self.policy.ceiling(self.attempt)
         self.attempt += 1
         if not self.policy.jitter:
             return ceil
+        if self._rng is None:
+            self._rng = random.Random(self._seed)
         return self._rng.uniform(0.0, ceil)
 
     def peek_ceiling(self) -> float:

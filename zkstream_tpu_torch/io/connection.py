@@ -18,6 +18,7 @@ from __future__ import annotations
 
 import asyncio
 import dataclasses
+import functools
 import time
 from typing import Callable
 
@@ -58,6 +59,15 @@ def _finish_span(req, zxid: int | None = None, status: str = 'ok',
         span.finish(zxid=zxid, status=status, error=error)
 
 
+def _settle(fut: asyncio.Future, outcome) -> None:
+    """Settle ``fut`` with a reply packet or an error, once."""
+    if not fut.done():
+        if isinstance(outcome, BaseException):
+            fut.set_exception(outcome)
+        else:
+            fut.set_result(outcome)
+
+
 class ZKRequest(EventEmitter):
     """One in-flight request: emits 'reply' (packet) or 'error' (exc)
     exactly once (reference: lib/connection-fsm.js:378-382).  The
@@ -69,19 +79,23 @@ class ZKRequest(EventEmitter):
         self.packet = packet
         #: Optional utils/trace.Span, attached by Client._start_op.
         self.span = None
+        #: The future of :meth:`as_future`, settled by :meth:`emit`.
+        self._fut: asyncio.Future | None = None
 
     def as_future(self) -> asyncio.Future:
-        """Adapt to an awaitable resolving to the reply packet.
+        """Adapt to an awaitable resolving to the reply packet: one
+        future a request, kept in its ``_fut`` slot, which the first
+        outcome's emit settles ahead of the outcome's listeners (no
+        listener of its own on the per-op hot path)."""
+        if self._fut is None:
+            self._fut = asyncio.get_running_loop().create_future()
+        return self._fut
 
-        Plain ``on`` (not ``once``): reply/error fire at most once per
-        request by contract, the ``done()`` guards make a double-settle
-        harmless, and skipping the once-wrapper + removal scan matters
-        on the per-op hot path."""
-        fut: asyncio.Future = asyncio.get_running_loop().create_future()
-        self.on('reply', lambda pkt: fut.done() or fut.set_result(pkt))
-        self.on('error', lambda err, *a: fut.done() or
-                fut.set_exception(err))
-        return fut
+    def emit(self, event: str, *args) -> bool:
+        fut = self._fut
+        if fut is not None and (event == 'reply' or event == 'error'):
+            _settle(fut, args[0])
+        return EventEmitter.emit(self, event, *args)
 
 
 class _SocketProtocol(asyncio.Protocol):
@@ -161,6 +175,8 @@ class ZKConnection(FSM):
         #: next flush stamps their ``t_sent`` and empties the list.
         self._corked_spans: list = []
         self._dial_task: asyncio.Task | None = None
+        #: The xid of the CLOSE_SESSION sent in 'closing', once sent.
+        self._close_xid: int | None = None
         #: Dial/handshake latency instrumentation: t0 set on entering
         #: 'connecting' (or on promote for a parked spare), observed
         #: into the histogram on reaching 'connected'.
@@ -180,7 +196,7 @@ class ZKConnection(FSM):
                              collector=collector, plane='client',
                              tier=getattr(client, 'transport_tier',
                                           None),
-                             transport_fn=lambda: self.transport,
+                             transport_fn=self._transport,
                              spans=self._corked_spans)
         self._connect_latency = None
         if collector is not None:
@@ -221,10 +237,16 @@ class ZKConnection(FSM):
         self._xid += 1
         return self._xid
 
+    def _transport(self):
+        return self.transport
+
     # -- states --
+    #
+    # Their listeners are methods of the machine (utils/fsm.py): what a
+    # listener needs beyond its arguments lives on the connection.
 
     def state_init(self, S) -> None:
-        S.on(self, 'connectAsserted', lambda: S.goto_state('connecting'))
+        S.goto_on(self, 'connectAsserted', 'connecting')
 
     def state_connecting(self, S) -> None:
         self.codec = PacketCodec(
@@ -233,101 +255,73 @@ class ZKConnection(FSM):
         self.log.debug('attempting new connection')
         self._connect_t0 = time.monotonic()
 
-        async def dial():
-            loop = asyncio.get_running_loop()
-            try:
-                if self.faults is not None:
-                    # injected reconnect latency and/or refusal
-                    await self.faults.before_connect(self.backend.key)
-                await loop.create_connection(
-                    lambda: _SocketProtocol(self),
-                    self.backend.address, self.backend.port)
-            except asyncio.CancelledError:
-                raise
-            except Exception as e:
-                self.emit('sockError', e)
+        self._dial_task = asyncio.get_running_loop().create_task(
+            self._dial())
 
-        self._dial_task = asyncio.get_running_loop().create_task(dial())
+        S.on(self, 'sockConnect', self._on_sock_connect)
+        S.on(self, 'sockError', self._on_sock_error)
+        S.goto_on(self, 'sockClose', 'closed')
+        S.goto_on(self, 'closeAsserted', 'closed')
+        S.goto_on(self, 'destroyAsserted', 'closed')
 
-        S.on(self, 'sockConnect', lambda: S.goto_state(
-            'parked' if self.spare else 'handshaking'))
+    async def _dial(self) -> None:
+        loop = asyncio.get_running_loop()
+        try:
+            if self.faults is not None:
+                # injected reconnect latency and/or refusal
+                await self.faults.before_connect(self.backend.key)
+            await loop.create_connection(
+                functools.partial(_SocketProtocol, self),
+                self.backend.address, self.backend.port)
+        except asyncio.CancelledError:
+            raise
+        except Exception as e:
+            self.emit('sockError', e)
+        # a finished dial holds its coroutine: let both go
+        if self._dial_task is asyncio.current_task():
+            self._dial_task = None
 
-        def on_error(err):
-            self.last_error = err
-            S.goto_state('error')
-        S.on(self, 'sockError', on_error)
-        S.on(self, 'sockClose', lambda: S.goto_state('closed'))
-        S.on(self, 'closeAsserted', lambda: S.goto_state('closed'))
-        S.on(self, 'destroyAsserted', lambda: S.goto_state('closed'))
+    def _on_sock_connect(self) -> None:
+        S = self._scope
+        S.goto_state('parked' if self.spare else 'handshaking')
+
+    def _on_sock_error(self, err) -> None:
+        S = self._scope
+        self.last_error = err
+        S.goto_state('error')
+
+    def _on_sock_end(self) -> None:
+        S = self._scope
+        self.last_error = ZKProtocolError('CONNECTION_LOSS',
+            'Connection closed unexpectedly.')
+        S.goto_state('error')
 
     def state_parked(self, S) -> None:
         """Warm spare: TCP is open, no ZK bytes exchanged.  Wakes into
         ``handshaking`` on promote; any socket activity or death tears
         it down (a ZK server must not speak first, so inbound data here
         is a protocol violation)."""
-        S.on(self, 'promoteAsserted',
-             lambda: S.goto_state('handshaking'))
+        S.goto_on(self, 'promoteAsserted', 'handshaking')
+        S.on(self, 'sockData', self._on_parked_data)
+        S.on(self, 'sockError', self._on_sock_error)
+        S.on(self, 'sockEnd', self._on_sock_end)
+        S.on(self, 'sockClose', self._on_sock_end)
+        S.goto_on(self, 'closeAsserted', 'closed')
+        S.goto_on(self, 'destroyAsserted', 'closed')
 
-        def on_data(_data):
-            self.last_error = ZKProtocolError('UNEXPECTED_PACKET',
-                'Server sent data before the handshake')
-            S.goto_state('error')
-        S.on(self, 'sockData', on_data)
-
-        def on_error(err):
-            self.last_error = err
-            S.goto_state('error')
-        S.on(self, 'sockError', on_error)
-
-        def on_end():
-            self.last_error = ZKProtocolError('CONNECTION_LOSS',
-                'Connection closed unexpectedly.')
-            S.goto_state('error')
-        S.on(self, 'sockEnd', on_end)
-        S.on(self, 'sockClose', on_end)
-        S.on(self, 'closeAsserted', lambda: S.goto_state('closed'))
-        S.on(self, 'destroyAsserted', lambda: S.goto_state('closed'))
+    def _on_parked_data(self, _data) -> None:
+        S = self._scope
+        self.last_error = ZKProtocolError('UNEXPECTED_PACKET',
+            'Server sent data before the handshake')
+        S.goto_state('error')
 
     def state_handshaking(self, S) -> None:
-        def on_data(data):
-            try:
-                pkts = self.codec.decode(data)
-            except ZKProtocolError as e:
-                self.last_error = e
-                S.goto_state('error')
-                return
-            if not pkts:
-                return
-            # Exactly one packet may arrive during the connect phase
-            # (reference: lib/connection-fsm.js:130-140).
-            if len(pkts) > 1:
-                self.last_error = ZKProtocolError('UNEXPECTED_PACKET',
-                    'Received unexpected additional packet during '
-                    'connect phase')
-                S.goto_state('error')
-                return
-            pkt = pkts[0]
-            if pkt['protocolVersion'] != consts.PROTOCOL_VERSION:
-                self.last_error = ZKProtocolError('VERSION_INCOMPAT',
-                    'Server version is not compatible')
-                S.goto_state('error')
-                return
-            self.emit('packet', pkt)
-        S.on(self, 'sockData', on_data)
-
-        def on_error(err):
-            self.last_error = err
-            S.goto_state('error')
-        S.on(self, 'sockError', on_error)
-
-        def on_end():
-            self.last_error = ZKProtocolError('CONNECTION_LOSS',
-                'Connection closed unexpectedly.')
-            S.goto_state('error')
-        S.on(self, 'sockEnd', on_end)
-        S.on(self, 'sockClose', on_end)
-        S.on(self, 'closeAsserted', lambda: S.goto_state('closed'))
-        S.on(self, 'destroyAsserted', lambda: S.goto_state('closed'))
+        S.on(self, 'sockData', self._on_handshake_data)
+        S.on(self, 'sockError', self._on_sock_error)
+        S.on(self, 'sockEnd', self._on_sock_end)
+        S.on(self, 'sockClose', self._on_sock_end)
+        S.goto_on(self, 'closeAsserted', 'closed')
+        S.goto_on(self, 'destroyAsserted', 'closed')
 
         self.session = self.client.get_session()
         if self.session is None:
@@ -345,12 +339,40 @@ class ZKConnection(FSM):
             S.goto_state('error')
             return
 
-        def on_session_state(st):
-            if st == 'attached':
-                S.goto_state('connected')
-        S.on(self.session, 'stateChanged', on_session_state)
+        S.on(self.session, 'stateChanged', self._on_handshake_session)
 
         self.session.attach_and_send_cr(self)
+
+    def _on_handshake_data(self, data) -> None:
+        S = self._scope
+        try:
+            pkts = self.codec.decode(data)
+        except ZKProtocolError as e:
+            self.last_error = e
+            S.goto_state('error')
+            return
+        if not pkts:
+            return
+        # Exactly one packet may arrive during the connect phase
+        # (reference: lib/connection-fsm.js:130-140).
+        if len(pkts) > 1:
+            self.last_error = ZKProtocolError('UNEXPECTED_PACKET',
+                'Received unexpected additional packet during '
+                'connect phase')
+            S.goto_state('error')
+            return
+        pkt = pkts[0]
+        if pkt['protocolVersion'] != consts.PROTOCOL_VERSION:
+            self.last_error = ZKProtocolError('VERSION_INCOMPAT',
+                'Server version is not compatible')
+            S.goto_state('error')
+            return
+        self.emit('packet', pkt)
+
+    def _on_handshake_session(self, st) -> None:
+        S = self._scope
+        if st == 'attached':
+            S.goto_state('connected')
 
     def state_connected(self, S) -> None:
         # Handshake is over: steady-state request/reply framing from here
@@ -369,25 +391,6 @@ class ZKConnection(FSM):
         ping_interval = max(self.session.get_timeout() / 4, 2000)
         S.interval(ping_interval, self.ping)
 
-        def deliver(pkts, err):
-            # the port's zk.route range (utils/trace.py): the replies'
-            # routing through their futures' settle
-            h = (_trace.range_enter('zk.route') if _trace.profiler_ranges
-                 else None)
-            try:
-                for pkt in pkts:
-                    self.emit('packet', pkt)
-                    # Notifications are the session's business
-                    # (reference: lib/connection-fsm.js:223-224).
-                    if pkt['opcode'] != 'NOTIFICATION':
-                        self.process_reply(pkt)
-            finally:
-                if h is not None:
-                    _trace.range_exit(h)
-            if err is not None:
-                self.last_error = err
-                S.goto_state('error')
-
         if self.ingest is not None:
             # Fleet drain: in the ingest's BATCH regime bytes go to the
             # batched device pipeline, which routes the decoded packets
@@ -398,99 +401,122 @@ class ZKConnection(FSM):
             # dispatch policy needs — so the regime where batching does
             # not pay costs one flag check over the no-ingest path.
             self.ingest.register(self)
-            S.defer(lambda: self.ingest.unregister(self))
-
-            def on_sock(data):
-                ing = self.ingest
-                if not ing.direct:
-                    ing.feed(self, data)
-                    return
-                # Deliberately restates FleetIngest._deliver_direct
-                # minus its emit hop: calling deliver() directly here
-                # skips one event dispatch per segment, which is the
-                # point of the pass-through.  Slot residue cannot
-                # exist in this regime (register/flip keep it in the
-                # codec), so no splice is needed.
-                pkts, err = self._decode(data)
-                ing.note_direct(len(data), len(pkts))
-                deliver(pkts, err)
-            S.on(self, 'sockData', on_sock)
-            S.on(self, 'ingestDeliver', deliver)
+            S.defer(self._unregister_ingest)
+            S.on(self, 'sockData', self._on_ingest_data)
+            S.on(self, 'ingestDeliver', self._deliver)
         else:
-            def on_data(data):
-                # packets decoded before a bad frame are delivered first
-                deliver(*self._decode(data))
-            S.on(self, 'sockData', on_data)
+            S.on(self, 'sockData', self._on_connected_data)
+        S.on(self, 'sockError', self._on_sock_error)
+        S.on(self, 'sockEnd', self._on_sock_end)
+        S.on(self, 'sockClose', self._on_sock_end)
+        S.goto_on(self, 'closeAsserted', 'closing')
+        S.goto_on(self, 'destroyAsserted', 'closed')
+        S.on(self, 'pingTimeout', self._on_ping_timeout)
+        S.immediate(self._emit_connect)
 
-        def on_error(err):
+    def _deliver(self, pkts, err) -> None:
+        """Route decoded packets (the connected state's drain, by the
+        socket or by the ingest); a decode error, after the packets
+        decoded before it, ends the connection unless their routing
+        already moved it."""
+        S = self._scope
+        # the port's zk.route range (utils/trace.py): the replies'
+        # routing through their futures' settle
+        h = (_trace.range_enter('zk.route') if _trace.profiler_ranges
+             else None)
+        try:
+            for pkt in pkts:
+                self.emit('packet', pkt)
+                # Notifications are the session's business
+                # (reference: lib/connection-fsm.js:223-224).
+                if pkt['opcode'] != 'NOTIFICATION':
+                    self.process_reply(pkt)
+        finally:
+            if h is not None:
+                _trace.range_exit(h)
+        if err is not None:
             self.last_error = err
             S.goto_state('error')
-        S.on(self, 'sockError', on_error)
 
-        def on_end():
-            self.last_error = ZKProtocolError('CONNECTION_LOSS',
-                'Connection closed unexpectedly.')
-            S.goto_state('error')
-        S.on(self, 'sockEnd', on_end)
-        S.on(self, 'sockClose', on_end)
+    def _on_connected_data(self, data) -> None:
+        # packets decoded before a bad frame are delivered first
+        self._deliver(*self._decode(data))
 
-        S.on(self, 'closeAsserted', lambda: S.goto_state('closing'))
-        S.on(self, 'destroyAsserted', lambda: S.goto_state('closed'))
+    def _on_ingest_data(self, data) -> None:
+        ing = self.ingest
+        if not ing.direct:
+            ing.feed(self, data)
+            return
+        # Deliberately restates FleetIngest._deliver_direct minus its
+        # emit hop: calling _deliver() directly here skips one event
+        # dispatch per segment, which is the point of the
+        # pass-through.  Slot residue cannot exist in this regime
+        # (register/flip keep it in the codec), so no splice is
+        # needed.
+        pkts, err = self._decode(data)
+        ing.note_direct(len(data), len(pkts))
+        self._deliver(pkts, err)
 
-        def on_ping_timeout():
-            self.last_error = ZKPingTimeoutError()
-            S.goto_state('error')
-        S.on(self, 'pingTimeout', on_ping_timeout)
+    def _unregister_ingest(self) -> None:
+        self.ingest.unregister(self)
 
-        S.immediate(lambda: self.emit('connect'))
+    def _on_ping_timeout(self) -> None:
+        S = self._scope
+        self.last_error = ZKPingTimeoutError()
+        S.goto_state('error')
+
+    def _emit_connect(self) -> None:
+        self.emit('connect')
 
     def state_closing(self, S) -> None:
         """Drain outstanding requests, then send CLOSE_SESSION and wait
         for its reply (reference: lib/connection-fsm.js:263-307)."""
-        close_xid: list[int | None] = [None]
-
-        def send_close_session():
-            if close_xid[0] is not None:
-                return
-            close_xid[0] = self.next_xid()
-            self.log.info('sent CLOSE_SESSION request (xid %d)',
-                          close_xid[0])
-            self._write({'opcode': 'CLOSE_SESSION', 'xid': close_xid[0]})
-            # the EOF must not cut ahead of the corked CLOSE_SESSION —
-            # hard: a batched transport tier defers flush_now to the
-            # tick submission, which would land after the write_eof
-            self._tx.flush_hard()
-            try:
-                if self.transport and self.transport.can_write_eof():
-                    self.transport.write_eof()
-            except (OSError, RuntimeError):
-                pass
-
-        def on_data(data):
-            pkts, err = self._decode(data)
-            if err is not None:
-                self.last_error = err
-                S.goto_state('closed')
-                return
-            for pkt in pkts:
-                if pkt['xid'] == close_xid[0]:
-                    S.goto_state('closed')
-                    return
-                self.process_reply(pkt)
-                if not self.reqs:
-                    send_close_session()
-        S.on(self, 'sockData', on_data)
-
-        def on_error(err):
-            self.last_error = err
-            S.goto_state('closed')
-        S.on(self, 'sockError', on_error)
-        S.on(self, 'sockEnd', lambda: S.goto_state('closed'))
-        S.on(self, 'sockClose', lambda: S.goto_state('closed'))
-        S.on(self, 'destroyAsserted', lambda: S.goto_state('closed'))
+        self._close_xid = None
+        S.on(self, 'sockData', self._on_closing_data)
+        S.on(self, 'sockError', self._on_closing_error)
+        S.goto_on(self, 'sockEnd', 'closed')
+        S.goto_on(self, 'sockClose', 'closed')
+        S.goto_on(self, 'destroyAsserted', 'closed')
 
         if not self.reqs:
-            send_close_session()
+            self._send_close_session()
+
+    def _send_close_session(self) -> None:
+        if self._close_xid is not None:
+            return
+        self._close_xid = self.next_xid()
+        self.log.info('sent CLOSE_SESSION request (xid %d)',
+                      self._close_xid)
+        self._write({'opcode': 'CLOSE_SESSION', 'xid': self._close_xid})
+        # the EOF must not cut ahead of the corked CLOSE_SESSION —
+        # hard: a batched transport tier defers flush_now to the
+        # tick submission, which would land after the write_eof
+        self._tx.flush_hard()
+        try:
+            if self.transport and self.transport.can_write_eof():
+                self.transport.write_eof()
+        except (OSError, RuntimeError):
+            pass
+
+    def _on_closing_data(self, data) -> None:
+        S = self._scope
+        pkts, err = self._decode(data)
+        if err is not None:
+            self.last_error = err
+            S.goto_state('closed')
+            return
+        for pkt in pkts:
+            if pkt['xid'] == self._close_xid:
+                S.goto_state('closed')
+                return
+            self.process_reply(pkt)
+            if not self.reqs:
+                self._send_close_session()
+
+    def _on_closing_error(self, err) -> None:
+        S = self._scope
+        self.last_error = err
+        S.goto_state('closed')
 
     def state_error(self, S) -> None:
         self.log.warning('error communicating with ZK: %s',
@@ -515,8 +541,8 @@ class ZKConnection(FSM):
         # Deliberately not scope-bound: the 'error' event must fire even
         # though we leave this state immediately
         # (reference: lib/connection-fsm.js:317-323).
-        err = self.last_error
-        asyncio.get_running_loop().call_soon(lambda: self.emit('error', err))
+        asyncio.get_running_loop().call_soon(self.emit, 'error',
+                                             self.last_error)
 
         S.goto_state('closed')
 
@@ -536,23 +562,23 @@ class ZKConnection(FSM):
         # corked frames have nowhere to go once the socket is dead
         self._tx.reset()
 
-        S.on(self, 'connectAsserted', lambda: S.goto_state('connecting'))
+        S.goto_on(self, 'connectAsserted', 'connecting')
+        S.immediate(self._fail_stragglers)
 
-        def fail_stragglers():
-            self.emit('close')
-            # Fail any remaining outstanding requests or they would hang
-            # forever (reference: lib/connection-fsm.js:338-350).
-            # Their spans settle as 'abandoned': the op was evicted
-            # from the pending table without a reply ever routing —
-            # distinct from a request that saw a typed error — so the
-            # ring can never hold an open span after teardown (the
-            # chaos campaigns assert exactly that).
-            err = ZKProtocolError('CONNECTION_LOSS', 'Connection closed.')
-            reqs, self.reqs = self.reqs, {}
-            for req in reqs.values():
-                _finish_span(req, status='abandoned', error=err.code)
-                req.emit('error', err)
-        S.immediate(fail_stragglers)
+    def _fail_stragglers(self) -> None:
+        self.emit('close')
+        # Fail any remaining outstanding requests or they would hang
+        # forever (reference: lib/connection-fsm.js:338-350).  Their
+        # spans settle as 'abandoned': the op was evicted from the
+        # pending table without a reply ever routing — distinct from a
+        # request that saw a typed error — so the ring can never hold
+        # an open span after teardown (the chaos campaigns assert
+        # exactly that).
+        err = ZKProtocolError('CONNECTION_LOSS', 'Connection closed.')
+        reqs, self.reqs = self.reqs, {}
+        for req in reqs.values():
+            _finish_span(req, status='abandoned', error=err.code)
+            req.emit('error', err)
 
     # -- request plumbing --
 

@@ -28,7 +28,7 @@ import os
 import random
 import zlib
 
-from ..utils.events import EventEmitter
+from ..utils.events import Bound, EventEmitter
 from ..utils.fsm import note_transition
 from ..utils.logging import Logger
 from .backoff import BackoffPolicy
@@ -440,25 +440,26 @@ class ConnectionPool(EventEmitter):
         self._conn_index = idx
         self.emit('added', conn.backend.key, conn)
         self._wake_spares()
-
-        def on_dead(*args):
-            # Only react if this is still the pool's current connection
-            # (after a rebalance swap the old conn dies later, already
-            # dropped from our bookkeeping).
-            if self.conn is conn:
-                self._drop_conn(destroy=True)
-                # During a rebalance the old connection's death is the
-                # session migration destroying it; the rebalance task
-                # owns the hold future's fate then.
-                if self._rebalancing:
-                    return
-                if self._hold is not None and not self._hold.done():
-                    self._hold.set_result(None)
+        on_dead = Bound(ConnectionPool._on_conn_dead, self, conn)
         conn.on('error', on_dead)
         conn.on('close', on_dead)
         if not (conn.is_in_state('connected') or
                 conn.is_in_state('closing')):
             on_dead()
+
+    def _on_conn_dead(self, conn: ZKConnection, *args) -> None:
+        # Only react if this is still the pool's current connection
+        # (after a rebalance swap the old conn dies later, already
+        # dropped from our bookkeeping).
+        if self.conn is conn:
+            self._drop_conn(destroy=True)
+            # During a rebalance the old connection's death is the
+            # session migration destroying it; the rebalance task owns
+            # the hold future's fate then.
+            if self._rebalancing:
+                return
+            if self._hold is not None and not self._hold.done():
+                self._hold.set_result(None)
 
     def _drop_conn(self, destroy: bool) -> None:
         if self.conn is None:
@@ -663,13 +664,14 @@ class ConnectionPool(EventEmitter):
     def _install_spare(self, conn: ZKConnection) -> None:
         self.spares.append(conn)
         self.log.debug('warm spare parked for %s', conn.backend.key)
-
-        def on_dead(*args):
-            if conn in self.spares:
-                self.spares.remove(conn)
-                self._wake_spares()
+        on_dead = Bound(ConnectionPool._on_spare_dead, self, conn)
         conn.on('error', on_dead)
         conn.on('close', on_dead)
+
+    def _on_spare_dead(self, conn: ZKConnection, *args) -> None:
+        if conn in self.spares:
+            self.spares.remove(conn)
+            self._wake_spares()
 
     async def _promote_spare(self) -> tuple[int, ZKConnection] | None:
         """Promote the most-preferred parked spare into a live

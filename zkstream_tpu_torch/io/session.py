@@ -168,17 +168,17 @@ class ZKSession(FSM):
             self._schedule_expiry(self.timeout / 1000.0)
 
     def _schedule_expiry(self, delay: float) -> None:
-        loop = asyncio.get_running_loop()
-
-        def fire():
-            self._expiry_handle = None
-            remaining = self._expiry_deadline - time.monotonic()
-            if remaining > 0:          # deadline moved while sleeping
-                self._schedule_expiry(remaining)
-            else:
-                self.expiry_timer.emit('timeout')
         self._expiry_at = time.monotonic() + delay
-        self._expiry_handle = loop.call_later(delay, fire)
+        self._expiry_handle = asyncio.get_running_loop().call_later(
+            delay, self._expiry_fire)
+
+    def _expiry_fire(self) -> None:
+        self._expiry_handle = None
+        remaining = self._expiry_deadline - time.monotonic()
+        if remaining > 0:          # deadline moved while sleeping
+            self._schedule_expiry(remaining)
+        else:
+            self.expiry_timer.emit('timeout')
 
     def _cancel_expiry_timer(self) -> None:
         if self._expiry_handle is not None:
@@ -231,50 +231,24 @@ class ZKSession(FSM):
             self.conn.destroy()
         self.conn = None
 
-        def on_attach(conn):
-            self.conn = conn
-            S.goto_state('attaching')
-        S.on(self, 'assertAttach', on_attach)
-        S.on(self, 'closeAsserted', lambda: S.goto_state('closed'))
-        S.on(self.expiry_timer, 'timeout', lambda: S.goto_state('expired'))
+        S.on(self, 'assertAttach', self._on_attach)
+        S.goto_on(self, 'closeAsserted', 'closed')
+        S.goto_on(self.expiry_timer, 'timeout', 'expired')
         self.watchers_disconnected()
 
+    # The states' listeners are methods of the session (utils/fsm.py).
+
+    def _on_attach(self, conn) -> None:
+        S = self._scope
+        self.conn = conn
+        S.goto_state('attaching')
+
     def state_attaching(self, S) -> None:
-        def on_conn_dead(*args):
-            # The connect attempt died.  A live session keeps trying; a
-            # session that had an id and ran out the clock is expired
-            # (reference: lib/zk-session.js:150-159).
-            if self.is_alive():
-                S.goto_state('detached')
-            elif self.session_id != 0:
-                S.goto_state('expired')
-            else:
-                S.goto_state('detached')
-        S.on(self.conn, 'error', on_conn_dead)
-        S.on(self.conn, 'close', on_conn_dead)
-
-        def on_packet(pkt):
-            if pkt['sessionId'] == 0:
-                # The server zeroed the id: our session is gone
-                # (reference: lib/zk-session.js:170-173).
-                S.goto_state('expired')
-                return
-            verb = 'resumed' if self.session_id != 0 else 'created'
-            self.log = self.log.child(
-                sessionId='%016x' % (pkt['sessionId'],))
-            self.log.info('%s zookeeper session with timeout %d ms',
-                          verb, pkt['timeOut'])
-            self._trace_edge('SESSION_' + verb.upper(),
-                             pkt['sessionId'])
-            self.timeout = pkt['timeOut']
-            self.session_id = pkt['sessionId']
-            self.passwd = pkt['passwd']
-            self.reset_expiry_timer()
-            S.goto_state('attached')
-        S.on(self.conn, 'packet', on_packet)
-
-        S.on(self.expiry_timer, 'timeout', lambda: S.goto_state('expired'))
-        S.on(self, 'closeAsserted', lambda: S.goto_state('closing'))
+        S.on(self.conn, 'error', self._on_attach_failed)
+        S.on(self.conn, 'close', self._on_attach_failed)
+        S.on(self.conn, 'packet', self._on_attach_packet)
+        S.goto_on(self.expiry_timer, 'timeout', 'expired')
+        S.goto_on(self, 'closeAsserted', 'closing')
 
         self.conn.send({
             'protocolVersion': consts.PROTOCOL_VERSION,
@@ -284,92 +258,85 @@ class ZKSession(FSM):
             'passwd': self.passwd,
         })
 
+    def _on_attach_failed(self, *args) -> None:
+        S = self._scope
+        # The connect attempt died.  A live session keeps trying; a
+        # session that had an id and ran out the clock is expired
+        # (reference: lib/zk-session.js:150-159).
+        if self.is_alive():
+            S.goto_state('detached')
+        elif self.session_id != 0:
+            S.goto_state('expired')
+        else:
+            S.goto_state('detached')
+
+    def _on_attach_packet(self, pkt) -> None:
+        S = self._scope
+        if pkt['sessionId'] == 0:
+            # The server zeroed the id: our session is gone
+            # (reference: lib/zk-session.js:170-173).
+            S.goto_state('expired')
+            return
+        verb = 'resumed' if self.session_id != 0 else 'created'
+        self.log = self.log.child(
+            sessionId='%016x' % (pkt['sessionId'],))
+        self.log.info('%s zookeeper session with timeout %d ms',
+                      verb, pkt['timeOut'])
+        self._trace_edge('SESSION_' + verb.upper(), pkt['sessionId'])
+        self.timeout = pkt['timeOut']
+        self.session_id = pkt['sessionId']
+        self.passwd = pkt['passwd']
+        self.reset_expiry_timer()
+        S.goto_state('attached')
+
     def state_attached(self, S) -> None:
         self.last_attach = time.monotonic()
+        S.on(self.conn, 'close', self._on_conn_dead)
+        S.on(self.conn, 'error', self._on_conn_dead)
+        S.on(self.conn, 'packet', self._on_packet)
+        S.goto_on(self.expiry_timer, 'timeout', 'expired')
+        S.goto_on(self, 'closeAsserted', 'closing')
+        S.on(self.conn, 'stateChanged', self._on_conn_state)
+        S.on(self, 'assertAttach', self._on_reattach)
 
-        def on_conn_dead(*args):
-            if self.is_alive():
-                S.goto_state('detached')
-            else:
-                S.goto_state('expired')
-        S.on(self.conn, 'close', on_conn_dead)
-        S.on(self.conn, 'error', on_conn_dead)
+    def _on_conn_dead(self, *args) -> None:
+        S = self._scope
+        S.goto_state('detached' if self.is_alive() else 'expired')
 
-        def on_packet(pkt):
-            self.reset_expiry_timer()
-            if pkt['opcode'] != 'NOTIFICATION':
-                # Track the max zxid seen: it anchors both session
-                # resumption and watch catch-up
-                # (reference: lib/zk-session.js:229-235).
-                if pkt['zxid'] > self.last_zxid:
-                    self.last_zxid = pkt['zxid']
-                return
-            self.process_notification(pkt)
-        S.on(self.conn, 'packet', on_packet)
+    def _on_packet(self, pkt) -> None:
+        self.reset_expiry_timer()
+        if pkt['opcode'] != 'NOTIFICATION':
+            # Track the max zxid seen: it anchors both session
+            # resumption and watch catch-up
+            # (reference: lib/zk-session.js:229-235).
+            if pkt['zxid'] > self.last_zxid:
+                self.last_zxid = pkt['zxid']
+            return
+        self.process_notification(pkt)
 
-        S.on(self.expiry_timer, 'timeout', lambda: S.goto_state('expired'))
-        S.on(self, 'closeAsserted', lambda: S.goto_state('closing'))
+    def _on_conn_state(self, st) -> None:
+        if st == 'connected':
+            if self.old_conn is not None:
+                self.old_conn.destroy()
+                self.old_conn = None
+            self.resume_watches()
 
-        def on_conn_state(st):
-            if st == 'connected':
-                if self.old_conn is not None:
-                    self.old_conn.destroy()
-                    self.old_conn = None
-                self.resume_watches()
-        S.on(self.conn, 'stateChanged', on_conn_state)
-
-        def on_attach(conn):
-            self.old_conn = self.conn
-            self.conn = conn
-            S.goto_state('reattaching')
-        S.on(self, 'assertAttach', on_attach)
+    def _on_reattach(self, conn) -> None:
+        S = self._scope
+        self.old_conn = self.conn
+        self.conn = conn
+        S.goto_state('reattaching')
 
     def state_reattaching(self, S) -> None:
         """Move a live session to a more-preferred backend, reverting to
         the old connection on failure (reference:
         lib/zk-session.js:265-339)."""
         assert self.old_conn is not None, 'reattaching requires old_conn'
-
-        def on_packet(pkt):
-            if pkt['sessionId'] == 0:
-                revert()
-                return
-            self.log.info('moved zookeeper session to more preferred '
-                          'backend (%s) with timeout %d ms',
-                          self.conn.backend.key, pkt['timeOut'])
-            self._trace_edge('SESSION_MIGRATED', pkt['sessionId'])
-            self.timeout = pkt['timeOut']
-            self.session_id = pkt['sessionId']
-            self.passwd = pkt['passwd']
-            self.reset_expiry_timer()
-            self.watchers_disconnected()
-            S.goto_state('attached')
-        S.on(self.conn, 'packet', on_packet)
-
-        def revert(*args):
-            if self.is_alive() and self.old_conn.is_in_state('connected'):
-                self.log.warning('reverted move of session to new '
-                                 'backend (%s)', self.conn.backend.key)
-                self.conn = self.old_conn
-                self.old_conn = None
-                S.goto_state('attached')
-            elif self.is_alive():
-                self.old_conn.destroy()
-                self.old_conn = None
-                S.goto_state('detached')
-            else:
-                self.old_conn.close()
-                self.old_conn = None
-                S.goto_state('expired')
-        S.on(self.conn, 'error', revert)
-        S.on(self.conn, 'close', revert)
-        S.on(self.expiry_timer, 'timeout', revert)
-
-        def on_close_asserted():
-            self.old_conn.close()
-            self.old_conn = None
-            S.goto_state('closing')
-        S.on(self, 'closeAsserted', on_close_asserted)
+        S.on(self.conn, 'packet', self._on_move_packet)
+        S.on(self.conn, 'error', self._revert_move)
+        S.on(self.conn, 'close', self._revert_move)
+        S.on(self.expiry_timer, 'timeout', self._revert_move)
+        S.on(self, 'closeAsserted', self._on_move_close_asserted)
 
         self.log.debug('attempting to move zookeeper session from %s '
                        'to %s', self.old_conn.backend.key,
@@ -383,10 +350,49 @@ class ZKSession(FSM):
             'passwd': self.passwd,
         })
 
+    def _on_move_packet(self, pkt) -> None:
+        S = self._scope
+        if pkt['sessionId'] == 0:
+            self._revert_move()
+            return
+        self.log.info('moved zookeeper session to more preferred '
+                      'backend (%s) with timeout %d ms',
+                      self.conn.backend.key, pkt['timeOut'])
+        self._trace_edge('SESSION_MIGRATED', pkt['sessionId'])
+        self.timeout = pkt['timeOut']
+        self.session_id = pkt['sessionId']
+        self.passwd = pkt['passwd']
+        self.reset_expiry_timer()
+        self.watchers_disconnected()
+        S.goto_state('attached')
+
+    def _revert_move(self, *args) -> None:
+        S = self._scope
+        if self.is_alive() and self.old_conn.is_in_state('connected'):
+            self.log.warning('reverted move of session to new '
+                             'backend (%s)', self.conn.backend.key)
+            self.conn = self.old_conn
+            self.old_conn = None
+            S.goto_state('attached')
+        elif self.is_alive():
+            self.old_conn.destroy()
+            self.old_conn = None
+            S.goto_state('detached')
+        else:
+            self.old_conn.close()
+            self.old_conn = None
+            S.goto_state('expired')
+
+    def _on_move_close_asserted(self) -> None:
+        S = self._scope
+        self.old_conn.close()
+        self.old_conn = None
+        S.goto_state('closing')
+
     def state_closing(self, S) -> None:
-        S.on(self.conn, 'error', lambda *a: S.goto_state('closed'))
-        S.on(self.conn, 'close', lambda: S.goto_state('closed'))
-        S.on(self.expiry_timer, 'timeout', lambda: S.goto_state('closed'))
+        S.goto_on(self.conn, 'error', 'closed')
+        S.goto_on(self.conn, 'close', 'closed')
+        S.goto_on(self.expiry_timer, 'timeout', 'closed')
         self.conn.close()
 
     def state_expired(self, S) -> None:
@@ -565,17 +571,17 @@ class ZKSession(FSM):
         if self._rearm_handle is not None:
             return
         delay_s = self._rearm_backoff.next_delay() / 1000.0
-        loop = asyncio.get_running_loop()
+        self._rearm_handle = asyncio.get_running_loop().call_later(
+            delay_s, self._rearm_fire)
 
-        def fire():
-            self._rearm_handle = None
-            if not self.is_in_state('attached'):
-                return
-            conn = self.conn
-            if conn is None or not conn.is_in_state('connected'):
-                return
-            self.resume_watches()
-        self._rearm_handle = loop.call_later(delay_s, fire)
+    def _rearm_fire(self) -> None:
+        self._rearm_handle = None
+        if not self.is_in_state('attached'):
+            return
+        conn = self.conn
+        if conn is None or not conn.is_in_state('connected'):
+            return
+        self.resume_watches()
 
     def _cancel_rearm_retry(self) -> None:
         if self._rearm_handle is not None:

@@ -212,6 +212,9 @@ class ZKWatchEvent(FSM):
         #: node (connection churn forces re-arms) must not re-emit
         #: 'deleted' for the same deletion.
         self._deleted_seen = False
+        #: When the arming read went out (its reply observes the re-arm
+        #: latency).
+        self._arm_t0 = 0.0
         super().__init__('disarmed')
 
     def _arm_ok(self) -> None:
@@ -257,19 +260,22 @@ class ZKWatchEvent(FSM):
 
     # -- states --
 
+    # The states' listeners are methods of the machine (utils/fsm.py).
+
     def state_disarmed(self, S) -> None:
-        S.on(self, 'armAsserted', lambda: S.goto_state('wait_session'))
+        S.goto_on(self, 'armAsserted', 'wait_session')
 
     def state_wait_session(self, S) -> None:
         if self.session.is_in_state('attached'):
             S.goto_state('wait_connected')
             return
-
-        def on_state(state):
-            if state == 'attached':
-                S.goto_state('wait_connected')
-        S.on(self.session, 'stateChanged', on_state)
+        S.on(self.session, 'stateChanged', self._on_session_state)
         self.log.debug('deferring watcher arm until after reconnect')
+
+    def _on_session_state(self, state) -> None:
+        S = self._scope
+        if state == 'attached':
+            S.goto_state('wait_connected')
 
     def state_wait_connected(self, S) -> None:
         conn = self.session.get_connection()
@@ -277,15 +283,14 @@ class ZKWatchEvent(FSM):
             # Do not bounce back synchronously: give the connection a
             # chance to finish its own transition this turn
             # (reference: lib/zk-session.js:781-790).
-            S.immediate(lambda: S.goto_state('wait_session'))
+            S.goto_soon('wait_session')
             return
         if self._arm_retry:
             # Previous arming attempt(s) failed: pace the retry so
             # connection churn cannot spin this FSM hot.  The timer is
             # scope-bound — a disconnect mid-wait disposes it and the
             # normal wait_session path takes over.
-            S.timeout(self._arm_backoff.next_delay(),
-                      lambda: S.goto_state('arming'))
+            S.goto_after(self._arm_backoff.next_delay(), 'arming')
             return
         S.goto_state('arming')
 
@@ -298,85 +303,84 @@ class ZKWatchEvent(FSM):
             # pending (state_wait_connected's check is stale by the
             # time the timer fires): back to waiting, don't throw.
             self._arm_retry = True
-            S.immediate(lambda: S.goto_state('wait_session'))
+            S.goto_soon('wait_session')
             return
-        arm_t0 = time.monotonic()
+        self._arm_t0 = time.monotonic()
         req = conn.request(self.to_packet())
+        S.on(req, 'reply', self._on_arm_reply)
+        S.on(req, 'error', self._on_arm_error)
 
-        def on_reply(pkt):
-            if self.evt == 'createdOrDeleted':
-                # EXISTS returned OK: the node exists.
-                args = ('created', pkt['stat'])
-                zxid = pkt['stat'].czxid
-            elif self.evt == 'dataChanged':
-                args = ('dataChanged', pkt['data'], pkt['stat'])
-                zxid = pkt['stat'].mzxid
-            elif self.evt == 'childrenChanged':
-                args = ('childrenChanged', pkt['children'], pkt['stat'])
-                zxid = pkt['stat'].pzxid
-            else:
-                raise ValueError('Unknown watcher event %s' % (self.evt,))
-            # Emit only if the relevant zxid moved FORWARD since the
-            # last emit: equality suppresses duplicate notifications
-            # from the server watch-kind overlap (reference:
-            # lib/zk-session.js:849-856), and an OLDER zxid is a
-            # stale read — a churn-forced re-arm can land on a
-            # lagging follower that has not applied a change this
-            # watcher already delivered, and re-emitting the old
-            # state would be a duplicate fire for a change the
-            # watcher saw (the at-most-once invariant,
-            # io/invariants.py check_watch_once).
-            self._arm_ok()
-            self._observe_rearm(arm_t0)
-            self._deleted_seen = False
-            if self.prev_zxid is not None and zxid <= self.prev_zxid:
-                S.goto_state('armed')
-                return
-            EventEmitter.emit(self.emitter, *args)
-            self.prev_zxid = zxid
+    def _on_arm_reply(self, pkt) -> None:
+        S = self._scope
+        if self.evt == 'createdOrDeleted':
+            # EXISTS returned OK: the node exists.
+            args = ('created', pkt['stat'])
+            zxid = pkt['stat'].czxid
+        elif self.evt == 'dataChanged':
+            args = ('dataChanged', pkt['data'], pkt['stat'])
+            zxid = pkt['stat'].mzxid
+        elif self.evt == 'childrenChanged':
+            args = ('childrenChanged', pkt['children'], pkt['stat'])
+            zxid = pkt['stat'].pzxid
+        else:
+            raise ValueError('Unknown watcher event %s' % (self.evt,))
+        # Emit only if the relevant zxid moved FORWARD since the last
+        # emit: equality suppresses duplicate notifications from the
+        # server watch-kind overlap (reference:
+        # lib/zk-session.js:849-856), and an OLDER zxid is a stale
+        # read — a churn-forced re-arm can land on a lagging follower
+        # that has not applied a change this watcher already
+        # delivered, and re-emitting the old state would be a
+        # duplicate fire for a change the watcher saw (the
+        # at-most-once invariant, io/invariants.py check_watch_once).
+        self._arm_ok()
+        self._observe_rearm(self._arm_t0)
+        self._deleted_seen = False
+        if self.prev_zxid is not None and zxid <= self.prev_zxid:
             S.goto_state('armed')
-        S.on(req, 'reply', on_reply)
+            return
+        EventEmitter.emit(self.emitter, *args)
+        self.prev_zxid = zxid
+        S.goto_state('armed')
 
-        def on_error(err, *a):
-            code = getattr(err, 'code', None)
-            if code == 'PING_TIMEOUT':
-                self._arm_retry = True
-                S.goto_state('wait_session')
-                return
-            if self.evt == 'createdOrDeleted' and code == 'NO_NODE':
-                # Existence watches arm fine on a missing node
-                # (reference: lib/zk-session.js:865-874).  Emit
-                # 'deleted' once per disappearance: churn-forced
-                # re-arms over the same absence stay silent.
-                self._arm_ok()
-                self._observe_rearm(arm_t0)
-                if not self._deleted_seen:
-                    self._deleted_seen = True
-                    EventEmitter.emit(self.emitter, 'deleted')
-                S.goto_state('armed')
-                return
-            if code == 'NO_NODE':
-                # Other watch kinds cannot attach to a missing node;
-                # park until it is created.
-                self._arm_ok()
-                self._observe_rearm(arm_t0)
-                S.goto_state('wait_node')
-                return
+    def _on_arm_error(self, err, *a) -> None:
+        S = self._scope
+        code = getattr(err, 'code', None)
+        if code == 'PING_TIMEOUT':
             self._arm_retry = True
-            self.log.debug('watcher attach failure (%s); will retry',
-                           err)
             S.goto_state('wait_session')
-        S.on(req, 'error', on_error)
+            return
+        if self.evt == 'createdOrDeleted' and code == 'NO_NODE':
+            # Existence watches arm fine on a missing node (reference:
+            # lib/zk-session.js:865-874).  Emit 'deleted' once per
+            # disappearance: churn-forced re-arms over the same
+            # absence stay silent.
+            self._arm_ok()
+            self._observe_rearm(self._arm_t0)
+            if not self._deleted_seen:
+                self._deleted_seen = True
+                EventEmitter.emit(self.emitter, 'deleted')
+            S.goto_state('armed')
+            return
+        if code == 'NO_NODE':
+            # Other watch kinds cannot attach to a missing node; park
+            # until it is created.
+            self._arm_ok()
+            self._observe_rearm(self._arm_t0)
+            S.goto_state('wait_node')
+            return
+        self._arm_retry = True
+        self.log.debug('watcher attach failure (%s); will retry', err)
+        S.goto_state('wait_session')
 
     def state_wait_node(self, S) -> None:
-        S.on(self.emitter, 'created',
-             lambda *a: S.goto_state('wait_session'))
+        S.goto_on(self.emitter, 'created', 'wait_session')
 
     def state_armed(self, S) -> None:
-        S.on(self, 'notifyAsserted', lambda: S.goto_state('wait_session'))
-        S.on(self, 'disconnectAsserted', lambda: S.goto_state('resuming'))
+        S.goto_on(self, 'notifyAsserted', 'wait_session')
+        S.goto_on(self, 'disconnectAsserted', 'resuming')
         dbl = round(DOUBLECHECK_TIMEOUT + random.random() * DOUBLECHECK_RAND)
-        S.timeout(dbl, lambda: S.goto_state('armed.doublecheck'))
+        S.goto_after(dbl, 'armed.doublecheck')
 
     def state_armed_doublecheck(self, S) -> None:
         """Probe EXISTS (no watch) and compare zxids; a moved zxid with
@@ -392,34 +396,34 @@ class ZKWatchEvent(FSM):
             return
         req = conn.request({'path': self.path, 'opcode': 'EXISTS',
                             'watch': False})
+        S.on(req, 'reply', self._on_doublecheck_reply)
+        S.goto_on(req, 'error', 'armed')
 
-        def on_reply(pkt):
-            if self.evt == 'createdOrDeleted':
-                zxid = pkt['stat'].czxid
-            elif self.evt == 'dataChanged':
-                zxid = pkt['stat'].mzxid
-            elif self.evt == 'childrenChanged':
-                zxid = pkt['stat'].pzxid
-            else:
-                raise ValueError('Unknown watcher event %s' % (self.evt,))
-            if self.prev_zxid is None or zxid > self.prev_zxid:
-                # Crash-on-bug (see ZKWatcher.notify): fatal by
-                # default, never a swallowed callback exception
-                # (reference throws: lib/zk-session.js:916-919).
-                # Only a zxid AHEAD of the last emit is a missed
-                # wakeup; an older one is a stale read from a
-                # lagging member (the next probe re-checks).
-                self.session.fatal_error(LostWakeupError(
-                    'ZKWatchEvent double-check failed: a ZK event '
-                    'wakeup was missed, this is a bug'))
-                return
-            S.goto_state('armed')
-        S.on(req, 'reply', on_reply)
-        S.on(req, 'error', lambda err, *a: S.goto_state('armed'))
+    def _on_doublecheck_reply(self, pkt) -> None:
+        S = self._scope
+        if self.evt == 'createdOrDeleted':
+            zxid = pkt['stat'].czxid
+        elif self.evt == 'dataChanged':
+            zxid = pkt['stat'].mzxid
+        elif self.evt == 'childrenChanged':
+            zxid = pkt['stat'].pzxid
+        else:
+            raise ValueError('Unknown watcher event %s' % (self.evt,))
+        if self.prev_zxid is None or zxid > self.prev_zxid:
+            # Crash-on-bug (see ZKWatcher.notify): fatal by default,
+            # never a swallowed callback exception (reference throws:
+            # lib/zk-session.js:916-919).  Only a zxid AHEAD of the
+            # last emit is a missed wakeup; an older one is a stale
+            # read from a lagging member (the next probe re-checks).
+            self.session.fatal_error(LostWakeupError(
+                'ZKWatchEvent double-check failed: a ZK event wakeup '
+                'was missed, this is a bug'))
+            return
+        S.goto_state('armed')
 
     def state_resuming(self, S) -> None:
-        S.on(self, 'resumeAsserted', lambda: S.goto_state('armed'))
-        S.on(self, 'notifyAsserted', lambda: S.goto_state('wait_session'))
+        S.goto_on(self, 'resumeAsserted', 'armed')
+        S.goto_on(self, 'notifyAsserted', 'wait_session')
 
     def to_packet(self) -> dict:
         opcode = {'createdOrDeleted': 'EXISTS',

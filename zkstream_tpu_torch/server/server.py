@@ -335,8 +335,7 @@ class ServerConnection:
                              barrier=server.ack_barrier,
                              ledger=server.ledger,
                              tier=server.transport_tier,
-                             transport_fn=lambda: getattr(
-                                 self.writer, 'transport', None))
+                             transport_fn=self._transport)
 
     @property
     def session_id(self):
@@ -346,6 +345,9 @@ class ServerConnection:
         return sess.id if sess is not None else None
 
     # -- wire helpers --
+
+    def _transport(self):
+        return getattr(self.writer, 'transport', None)
 
     def _tx_write(self, data: bytes) -> None:
         try:

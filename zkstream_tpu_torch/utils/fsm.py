@@ -10,7 +10,18 @@ races tractable, so this module provides the same contract for asyncio:
 - ``goto_state(name)`` disposes the current scope (listeners removed,
   timers cancelled) and runs ``state_<name>(S)``;
 - ``S.on(emitter, event, cb)`` / ``S.timeout(ms, cb)`` /
-  ``S.interval(ms, cb)`` / ``S.immediate(cb)`` are scope-bound;
+  ``S.interval(ms, cb)`` / ``S.immediate(cb)`` are scope-bound, and
+  ``S.goto_on(emitter, event, state)`` / ``S.goto_after(ms, state)`` /
+  ``S.goto_soon(state)`` go to a state without a callback of their
+  own; a machine's listeners are its methods, so that a registration
+  is one object holding a function and its receiver, not a closure;
+- a listener method that moves the machine takes ``S = self._scope``
+  at entry and goes through ``S.goto_state``, as a closure over the
+  state's ``S`` did: if its side effects moved the machine first, the
+  disposed scope makes the transition a no-op.  ``self._scope`` is the
+  innermost scope, a substate's while the machine is in one, so a
+  listener registered by a parent state (``armed``) that runs in its
+  substate (``armed.doublecheck``) takes the substate's scope;
 - dotted substates (``armed.doublecheck``) keep the parent state's scope
   alive, inheriting its transitions, exactly like mooremachine substates
   (reference: lib/zk-session.js:671-673);
@@ -22,6 +33,7 @@ from __future__ import annotations
 
 import asyncio
 import weakref
+from types import MethodType
 from typing import Callable
 
 from .events import EventEmitter
@@ -46,12 +58,19 @@ def _fsm_state_counts(registry) -> dict:
             for (label, state), n in counts.items()}
 
 
-def _fsm_registrations(registry) -> float:
+def _fsm_registrations(registry) -> dict:
     """Live ``StateScope`` registrations over a weak registry of
-    instrumented machines: the disposers their current scopes hold."""
-    return float(sum(len(scope._disposers)
-                     for machine in list(registry)
-                     for _st, scope in getattr(machine, '_scopes', ())))
+    instrumented machines, by form: ``method`` (a function and its
+    receiver, or a target state) and ``callable`` (anything else)."""
+    total = callables = 0
+    for machine in list(registry):
+        scope = getattr(machine, '_scope', None)
+        while scope is not None:
+            total += len(scope._disposers)
+            callables += scope._callables
+            scope = scope._parent
+    return {(('form', 'method'),): float(total - callables),
+            (('form', 'callable'),): float(callables)}
 
 
 def bind_transition_metrics(machine, collector,
@@ -65,9 +84,10 @@ def bind_transition_metrics(machine, collector,
       every transition;
     - ``zkstream_fsm_state{fsm,state}`` — a pull gauge counting live
       machines per (label, state) at scrape time;
-    - ``zkstream_fsm_scope_registrations`` — a pull gauge summing the
-      live ``StateScope`` registrations of those machines (the
-      process's, where one collector serves every client).
+    - ``zkstream_fsm_scope_registrations{form}`` — a pull gauge
+      summing the live ``StateScope`` registrations of those machines
+      (the process's, where one collector serves every client) by the
+      form of their callback: ``method`` or ``callable``.
 
     The registry holds weak references, so instrumented machines are
     censused only while alive; binding is idempotent per collector
@@ -84,11 +104,12 @@ def bind_transition_metrics(machine, collector,
             METRIC_FSM_STATE,
             lambda reg=registry: _fsm_state_counts(reg),
             'Live state machines per (fsm, state)')
-        collector.gauge(
+        collector.multi_gauge(
             METRIC_FSM_REGISTRATIONS,
             lambda reg=registry: _fsm_registrations(reg),
             'Live state-scope registrations (listeners, timers, '
-            'deferred callbacks) of the instrumented machines')
+            'deferred callbacks) of the instrumented machines, by '
+            'form (method | callable)')
     registry.add(machine)
 
 
@@ -101,48 +122,75 @@ def note_transition(machine, old: str | None, new: str) -> None:
                        'from': old or '', 'to': new})
 
 
+def _split(cb: Callable) -> tuple:
+    """``(fn, obj)`` of a callback as :class:`_Scoped` holds it: a bound
+    method's function and receiver, else the callable and None."""
+    if type(cb) is MethodType:
+        return cb.__func__, cb.__self__
+    return cb, None
+
+
 class _Scoped:
-    """A callback bound to a scope: calls ``cb`` only while the scope is
+    """A callback bound to a scope: runs only while the scope is
     current.  ``S.on`` registers one as the emitter's listener and as
     its own disposer (``emitter`` and ``event`` say where the disposal
     takes it off, by identity); ``S.timeout`` and ``S.immediate``
     schedule one.  A registration is thus one object the collector
-    tracks."""
+    tracks, in one of three forms:
 
-    __slots__ = ('scope', 'cb', 'emitter', 'event')
+    - a method: ``fn`` the function, ``obj`` its receiver (the bound
+      method object itself is dropped), called as ``fn(obj, *args)``;
+    - a target state: ``fn`` None, ``obj`` the state's name;
+    - any other callable: ``fn`` it, ``obj`` None (a bound method's
+      receiver is never None)."""
 
-    def __init__(self, scope: 'StateScope', cb: Callable,
+    __slots__ = ('scope', 'fn', 'obj', 'emitter', 'event')
+
+    def __init__(self, scope: 'StateScope', fn: Callable | None, obj,
                  emitter: EventEmitter | None = None,
                  event: str | None = None):
         self.scope = scope
-        self.cb = cb
+        self.fn = fn
+        self.obj = obj
         self.emitter = emitter
         self.event = event
 
     def __call__(self, *args) -> None:
-        if self.scope._valid:
-            self.cb(*args)
+        scope = self.scope
+        if scope._valid:
+            fn = self.fn
+            if fn is None:
+                scope._fsm._transition(self.obj)
+            elif self.obj is None:
+                fn(*args)
+            else:
+                fn(self.obj, *args)
 
 
 class _Interval:
-    """One ``S.interval`` registration: the armed timer and its re-arm."""
+    """One ``S.interval`` registration: the armed timer and its re-arm
+    (``fn`` and ``obj`` as in :class:`_Scoped`)."""
 
-    __slots__ = ('scope', 'cb', 'delay', 'loop', 'handle')
+    __slots__ = ('scope', 'fn', 'obj', 'delay', 'loop', 'handle')
 
-    def __init__(self, scope: 'StateScope', cb: Callable[[], None],
+    def __init__(self, scope: 'StateScope', fn: Callable, obj,
                  delay: float, loop):
         self.scope = scope
-        self.cb = cb
+        self.fn = fn
+        self.obj = obj
         self.delay = delay
         self.loop = loop
-        self.handle = loop.call_later(delay, self.fire)
+        self.handle = loop.call_later(delay, self)
 
-    def fire(self) -> None:
+    def __call__(self) -> None:
         if not self.scope._valid:
             return
-        self.cb()
+        if self.obj is None:
+            self.fn()
+        else:
+            self.fn(self.obj)
         if self.scope._valid:
-            self.handle = self.loop.call_later(self.delay, self.fire)
+            self.handle = self.loop.call_later(self.delay, self)
 
     def cancel(self) -> None:
         self.handle.cancel()
@@ -154,35 +202,77 @@ class StateScope:
 
     The disposers, in registration order: an ``S.on`` listener (a
     :class:`_Scoped`, taken off its emitter), a timer handle or an
-    :class:`_Interval` (cancelled), an ``S.defer`` callback (called)."""
+    :class:`_Interval` (cancelled), an ``S.defer`` callback (called);
+    an ``S.immediate`` callback needs none (its guard goes stale).
+    A bound method given to any of them is kept as its function and
+    receiver; ``_callables`` counts the registrations of any other
+    callable (closures and lambdas), for the registrations gauge."""
 
-    def __init__(self, fsm: 'FSM', state: str):
+    __slots__ = ('_fsm', '_state', '_parent', '_disposers', '_valid',
+                 '_callables')
+
+    def __init__(self, fsm: 'FSM', state: str,
+                 parent: 'StateScope | None' = None):
         self._fsm = fsm
         self._state = state
+        self._parent = parent
         self._disposers: list = []
         self._valid = True
+        self._callables = 0
+
+    def _split(self, cb: Callable) -> tuple:
+        """``(fn, obj)`` of a registration's callback, counted."""
+        fn, obj = _split(cb)
+        if obj is None:
+            self._callables += 1
+        return fn, obj
 
     def on(self, emitter: EventEmitter, event: str, cb: Callable) -> None:
-        guard = _Scoped(self, cb, emitter, event)
+        guard = _Scoped(self, *self._split(cb), emitter, event)
+        emitter.on(event, guard)
+        self._disposers.append(guard)
+
+    def goto_on(self, emitter: EventEmitter, event: str,
+                state: str) -> None:
+        """Go to ``state`` when ``emitter`` emits ``event`` (its
+        arguments ignored)."""
+        guard = _Scoped(self, None, state, emitter, event)
         emitter.on(event, guard)
         self._disposers.append(guard)
 
     def timeout(self, ms: float,
                 cb: Callable[[], None]) -> asyncio.TimerHandle:
-        handle = ambient_loop().call_later(ms / 1000.0, _Scoped(self, cb))
+        handle = ambient_loop().call_later(
+            ms / 1000.0, _Scoped(self, *self._split(cb)))
         self._disposers.append(handle)
         return handle
 
+    def goto_after(self, ms: float, state: str) -> None:
+        """Go to ``state`` after ``ms`` milliseconds in this one."""
+        self._disposers.append(ambient_loop().call_later(
+            ms / 1000.0, _Scoped(self, None, state)))
+
     def interval(self, ms: float, cb: Callable[[], None]) -> None:
         self._disposers.append(
-            _Interval(self, cb, ms / 1000.0, ambient_loop()))
+            _Interval(self, *self._split(cb), ms / 1000.0,
+                      ambient_loop()))
 
     def immediate(self, cb: Callable[[], None]) -> None:
-        self._disposers.append(ambient_loop().call_soon(_Scoped(self, cb)))
+        """Run ``cb`` on the loop's next turn, if still in this state.
+        The guard, gone stale, is all the disposal it needs: the scope
+        keeps no handle of it, so it is not a registration either."""
+        ambient_loop().call_soon(_Scoped(self, *_split(cb)))
+
+    def goto_soon(self, state: str) -> None:
+        """Go to ``state`` on the loop's next turn, if still in this
+        one (as :meth:`immediate`)."""
+        ambient_loop().call_soon(_Scoped(self, None, state))
 
     def defer(self, cb: Callable[[], None]) -> None:
         """Run ``cb`` when the machine leaves this state (scope-exit
         cleanup, e.g. deregistering from an external registry)."""
+        if type(cb) is not MethodType:
+            self._callables += 1
         self._disposers.append(cb)
 
     def goto_state(self, name: str) -> None:
@@ -199,6 +289,7 @@ class StateScope:
             else:
                 d.cancel()          # a timer handle, an _Interval
         self._disposers.clear()
+        self._callables = 0
 
 
 class FSM(EventEmitter):
@@ -208,9 +299,10 @@ class FSM(EventEmitter):
     def __init__(self, initial: str):
         super().__init__()
         self._state: str | None = None
-        #: Scope stack: one entry per dotted level of the current state
-        #: (['armed'] or ['armed', 'armed.doublecheck']).
-        self._scopes: list[tuple[str, StateScope]] = []
+        #: The current state's scope; a dotted state's links to its
+        #: parent state's ('armed.doublecheck' -> 'armed'), which stays
+        #: alive with it.
+        self._scope: StateScope | None = None
         self._in_transition = False
         self._queued: str | None = None
         self._transition(initial)
@@ -242,24 +334,17 @@ class FSM(EventEmitter):
         # Dispose scopes that are not parents of the new state.  Entering
         # 'armed.doublecheck' from 'armed' keeps the 'armed' scope alive;
         # entering 'wait_session' from 'armed.doublecheck' disposes both.
-        keep = 0
-        parts = name.split('.')
-        prefixes = ['.'.join(parts[:i + 1]) for i in range(len(parts) - 1)]
-        for st, _scope in self._scopes:
-            if keep < len(prefixes) and st == prefixes[keep]:
-                keep += 1
-            else:
-                break
-        for _st, scope in reversed(self._scopes[keep:]):
-            scope._dispose()
-        del self._scopes[keep:]
+        parent = self._scope
+        while parent is not None and \
+                not name.startswith(parent._state + '.'):
+            parent._dispose()
+            parent = parent._parent
 
         handler = getattr(self, 'state_' + name.replace('.', '_'), None)
         if handler is None:
             raise AttributeError('%s has no state %r' %
                                  (type(self).__name__, name))
-        scope = StateScope(self, name)
-        self._scopes.append((name, scope))
+        scope = self._scope = StateScope(self, name, parent)
         note_transition(self, self._state, name)
         self._state = name
         self._in_transition = True
